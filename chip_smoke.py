@@ -1,0 +1,638 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``gaussianrenderer_tpu_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (nvcc); builds the port's CUDA
+kernels from the sources in this checkout into build/torch_kernels/.
+Phases, each ending with ``torch.cuda.synchronize()`` and a line giving
+its elapsed seconds:
+
+1. device           — the card's name and power limit (nvidia-smi);
+2. build            — nvcc build of every kernel (seconds, registers);
+3. scene-3m         — the bench.py headline scene (3M splats, Morton order);
+4. kernel-vs-plain  — each kernel against its plain PyTorch version on the
+                      card: three 800×600 packed frames (plain rgb; alpha +
+                      depth + background; wide splats) and 32 tiles of the
+                      3M-splat 1080p frame (the 16 with the most instances,
+                      16 seeded random);
+5. goldens          — the five tests/fixtures/golden_*.npz setups rendered
+                      by the port, PSNR ≥ 40 dB against each framebuffer;
+6. full-3m, profile-3m, full-trained-500k
+                    — the main path through ``render_frame`` at full width:
+                      3M splats at 1920×1080 (bench camera) and
+                      data/trained_500k.ply at 1920×1080; counts beside
+                      the JAX package's recorded ones, median frame, stage
+                      and kernel times, and the kernel's launch count;
+                      a torch.profiler pass over the 3M frame (device busy
+                      share, device time by kernel and by PyTorch op).
+
+Then one JSON line of per-kernel numbers, the card line again, and as the
+last line ``{"ok": true, "device": {...}}``. Any failed check raises and
+the script exits non-zero without the ok line. Logs go to stderr.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: Where every scene and frame of the run lives.
+DEVICE = "cuda"
+
+#: Tolerances of the kernel against its plain version on the card: the
+#: per-pixel stop rule (T ≥ 1e-3) can flip on a float-order difference,
+#: which moves one weight by at most ~1e-3 (max), and must stay rare (mean).
+KERNEL_MAX_ABS = 2e-3
+KERNEL_MEAN_ABS = 1e-5
+GOLDEN_MIN_PSNR = 40.0
+
+#: Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
+#: cores and HBM bandwidth, at the 700 W power limit.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+#: fp32/int operations per (pixel, instance lane) pair the compositor
+#: needs. Every pair of an in-image pixel and a walked lane pays the u8
+#: AABB test (two unsigned compares). A pair inside the lane's AABB also
+#: pays the splat: offsets 2, quadratic 7, exponent argument 2, fast_exp
+#: 18, clamp 1, alpha test 1; and the blend: T test 1, weight 1, colour
+#: accumulation 6, T update 2. Depth accumulation adds 2 when the frame
+#: has a depth row.
+OPS_BOX_TEST = 2
+OPS_IN_BOX = OPS_BOX_TEST + 31 + 10
+OPS_DEPTH = 2
+#: Bytes of one packed instance record (5 u32 rows).
+RECORD_BYTES = 20
+
+#: The JAX package's counts for the same frames, which the port must
+#: equal (they do not depend on the device): BENCH_r05.json, a TPU run
+#: of bench.py (3M bench scene), and the current JAX emitter run on the
+#: CPU by ``PYTHONPATH=. python tests/test_torch_scene_counts.py``
+#: (trained_500k).
+REF_COUNTS = {
+    "bench_3m": {"num_instances": 5585012, "num_culled": 2922824},
+    "trained_500k": {"num_instances": 1592730, "num_culled": 434930},
+}
+
+
+def log(*args):
+    print(*args, file=sys.stderr, flush=True)
+
+
+def out(obj):
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+class Phase:
+    """Times one phase: synchronizes the card at its end and prints the
+    elapsed seconds on a line of their own."""
+
+    def __init__(self, name, torch):
+        self.name, self.torch = name, torch
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"== phase {self.name}")
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.torch.cuda.synchronize()
+        if exc_type is None:
+            out(f"phase {self.name}: {time.perf_counter() - self.t0:.2f} s")
+        return False
+
+
+def card_line():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def psnr(a, b, peak=1.0):
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(peak * peak / mse)
+
+
+# --------------------------------------------------------------- scene setups
+def look_camera(gt, pos, aspect, fov=70.0, near=0.2, look_at=(0.0, 0.0, 0.0)):
+    cam = gt.Camera()
+    cam.set_position(list(pos))
+    cam.set_look_at(list(look_at))
+    cam.set_fov_y(fov)
+    cam.set_aspect_ratio(aspect)
+    cam.set_clipping_planes(near, 100.0)
+    cam.update_camera_matrices()
+    return cam
+
+
+def golden_setup(name, device=None):
+    """The pinned (scene, camera, cfg, time) of tests/fixtures/golden_<name>,
+    rebuilt with the port's own generator and loader; the same setups as
+    tools/make_golden_fixture.py's ``golden_setup``."""
+    import gaussianrenderer_tpu_torch as gt
+
+    device = device or DEVICE
+    aspect = 160 / 128
+    cam = look_camera(gt, (0.5, -0.4, 5.5), aspect, fov=55.0)
+    if name == "scene0":
+        scene = gt.make_random_scene(800, seed=123, device=device)
+        cfg = gt.RenderConfig(height=128, width=160, compositor="packed")
+        return scene, cam, cfg, None
+    if name == "deg3":
+        scene = gt.make_random_scene(600, seed=7, sh_degree=3, device=device)
+        cfg = gt.RenderConfig(height=128, width=160, compositor="packed", sh_degree=3)
+        return scene, cam, cfg, None
+    if name == "motion":
+        scene = gt.make_random_scene(500, seed=9, spacetime=True, device=device)
+        cfg = gt.RenderConfig(height=128, width=160, compositor="packed")
+        return scene, cam, cfg, 0.37
+    if name == "ewa":
+        scene = gt.make_random_scene(
+            600, seed=5, scale_range=(0.004, 0.08), device=device
+        )
+        cfg = gt.RenderConfig(
+            height=128, width=160, compositor="packed",
+            ewa_dilation=0.3, ewa_compensate=True,
+        )
+        return scene, cam, cfg, None
+    if name == "trained":
+        scene = gt.load_ply(
+            os.path.join(REPO, "tests", "fixtures", "trained.ply"),
+            max_sh_degree=1, device=device,
+        )
+        cfg = gt.RenderConfig(
+            height=128, width=160, compositor="packed", sh_degree=1, tier_boost=1
+        )
+        return scene, look_camera(gt, (3.9, 1.5, 3.9), aspect), cfg, None
+    raise ValueError(f"unknown golden {name!r}")
+
+
+GOLDEN_NAMES = ("scene0", "deg3", "motion", "ewa", "trained")
+
+
+def bench_3m_setup(device=None):
+    """bench.py's headline frame: 3M splats, Morton-ordered, 1920×1080,
+    camera at (0, 1, 8) looking at the origin, fov 70°, clip 0.2–100."""
+    import gaussianrenderer_tpu_torch as gt
+
+    device = device or DEVICE
+    scene = gt.make_random_scene(
+        3_000_000, seed=0, extent=4.0, scale_range=(0.004, 0.03), device=device
+    ).morton_sorted()
+    cfg = gt.RenderConfig(height=1080, width=1920)
+    return scene, look_camera(gt, (0.0, 1.0, 8.0), 1920 / 1080), cfg
+
+
+def trained_500k_setup(device=None):
+    """tools/bench_suite.py config 8: data/trained_500k.ply (SH degree 1,
+    Morton-ordered) at 1920×1080 from the training orbit (3.9, 1.7, 3.9)."""
+    import gaussianrenderer_tpu_torch as gt
+
+    device = device or DEVICE
+    scene = gt.load_ply(
+        os.path.join(REPO, "data", "trained_500k.ply"), max_sh_degree=1, device=device
+    ).morton_sorted()
+    cfg = gt.RenderConfig(height=1080, width=1920, sh_degree=1)
+    return scene, look_camera(gt, (3.9, 1.7, 3.9), 1920 / 1080), cfg
+
+
+# ------------------------------------------------------------------- helpers
+def frame_stages(gt, scene, cam, cfg, want_depth):
+    """The stages of one static frame before the compositor, as
+    zero-argument callables: (preprocess, emit) with emit(proj) → inst."""
+    camp = cam.params(cfg.k_sigma, device=DEVICE)
+
+    def preprocess():
+        return gt.preprocess_gaussians(
+            scene, camp, width=cfg.width, height=cfg.height,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+            tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, sh_degree=cfg.sh_degree,
+        )
+
+    def emit(proj):
+        return gt.build_packed_instances(
+            proj, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+            near=camp.near, far=camp.far, want_depth=want_depth,
+        )
+
+    return preprocess, emit
+
+
+def packed_frame(gt, scene, cam, cfg, want_depth):
+    """Projection + emission of one frame: the compositor's inputs."""
+    preprocess, emit = frame_stages(gt, scene, cam, cfg, want_depth)
+    return emit(preprocess())
+
+
+def comp_kwargs(cfg, out_alpha):
+    return dict(
+        tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
+        tile_h=cfg.tile_h, width=cfg.width, height=cfg.height,
+        chunk=cfg.packed_chunk, out_alpha=out_alpha,
+    )
+
+
+def compare(torch, name, kernel_out, plain_out, rows, depth_rows=()):
+    """Max and mean |kernel − plain| per row; depth rows are divided by the
+    frame's largest |depth| first (their error is a weight error times d)."""
+    res = {"case": name}
+    worst = 0.0
+    for i, row in enumerate(rows):
+        a, b = kernel_out[i], plain_out[i]
+        if row in depth_rows:
+            scale = max(float(b.abs().max()), 1e-6)
+            a, b = a / scale, b / scale
+        d = (a - b).abs()
+        mx, mean = float(d.max()), float(d.mean())
+        res[row] = {"max_abs": mx, "mean_abs": mean}
+        check(
+            mx <= KERNEL_MAX_ABS and mean <= KERNEL_MEAN_ABS and math.isfinite(mx),
+            f"{name} {row}: kernel vs plain max {mx:.3g} mean {mean:.3g}",
+        )
+        worst = max(worst, mx)
+    out(res)
+    return worst
+
+
+def cuda_ms(torch, fn, reps):
+    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def compositor_bound_ms(torch, inst, cfg, walked, nc):
+    """Least time for this frame's compositor work on an H100: the larger
+    of the operations the walked lanes need over the fp32 peak and the
+    bytes the function must move (records, depth row and ranges in,
+    framebuffer out) over the HBM peak.
+
+    Operations count what this frame's data needs: each walked lane (up
+    to its tile's early exit, ``walked`` chunks) costs ``OPS_IN_BOX`` for
+    each in-image pixel of its tile inside its u8 AABB and
+    ``OPS_BOX_TEST`` for every other in-image pixel; pixels past the image
+    edge cost nothing. Returns (ms, "operations" | "bytes", pairs walked,
+    pairs inside an AABB)."""
+    k = cfg.packed_chunk
+    i64 = torch.int64
+    dev = inst.tile_count.device
+    count = inst.tile_count.to(i64)
+    start = inst.tile_start.to(i64)
+    reach = torch.minimum(start + count, (start // k) * k + walked.to(i64) * k)
+    tiles = torch.arange(cfg.num_tiles, device=dev)
+    # Tile of each record: the ranges are contiguous and in tile order.
+    lane_tile = torch.repeat_interleave(tiles, count)
+    keep = torch.arange(lane_tile.numel(), device=dev) < reach[lane_tile]
+    lane_tile = lane_tile[keep]
+    box = inst.packed_feats[4][keep].to(i64) & 0xFFFFFFFF
+    # In-image extent of each tile (the last column and row may be cut).
+    span_x = torch.clamp(cfg.width - (tiles % cfg.tiles_x) * cfg.tile_w, max=cfg.tile_w)
+    span_y = torch.clamp(cfg.height - (tiles // cfg.tiles_x) * cfg.tile_h,
+                         max=cfg.tile_h)
+    sx, sy = span_x[lane_tile], span_y[lane_tile]
+    nx = torch.clamp(torch.minimum(box >> 16 & 0xFF, sx - 1) - (box & 0xFF) + 1, min=0)
+    ny = torch.clamp(torch.minimum(box >> 24, sy - 1) - (box >> 8 & 0xFF) + 1, min=0)
+    pairs = int((sx * sy).sum())
+    in_box = int((nx * ny).sum())
+    ops_in = OPS_IN_BOX + (OPS_DEPTH if inst.depth_f32 is not None else 0)
+    ops = in_box * ops_in + (pairs - in_box) * OPS_BOX_TEST
+    ops_s = ops / PEAK_FP32_FLOPS
+    n_lanes = inst.packed_feats.shape[1]
+    n_bytes = (
+        n_lanes * (RECORD_BYTES + (4 if inst.depth_f32 is not None else 0))
+        + 8 * cfg.num_tiles
+        + 4 * nc * cfg.height * cfg.width
+    )
+    bytes_s = n_bytes / PEAK_HBM_BYTES
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations", pairs, in_box
+    return bytes_s * 1e3, "bytes", pairs, in_box
+
+
+# -------------------------------------------------------------------- phases
+def phase_kernel_vs_plain(torch, gt, big):
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
+        composite_tiles_packed_plain,
+        tile_blocks,
+    )
+
+    worst = 0.0
+    small = gt.RenderConfig(height=600, width=800)
+    cam = look_camera(gt, (-1.5, -1.5, -3.0), 800 / 600, fov=90.0, near=0.3)
+    scene = gt.make_random_scene(20000, seed=0, device=DEVICE)
+    wide = gt.make_random_scene(
+        20000, seed=0, scale_range=(0.05, 0.5), device=DEVICE
+    )
+    cases = (
+        ("800x600", scene, dict(), ("r", "g", "b")),
+        ("800x600 alpha+depth+bg", scene,
+         dict(output_alpha=True, output_depth=True, background=(0.2, 0.4, 0.8)),
+         ("r", "g", "b", "alpha", "depth")),
+        ("800x600 wide splats", wide, dict(), ("r", "g", "b")),
+    )
+    for name, sc, extra, rows in cases:
+        cfg = gt.RenderConfig(height=small.height, width=small.width, **extra)
+        out_alpha = cfg.output_alpha or cfg.background is not None
+        inst = packed_frame(gt, sc, cam, cfg, cfg.output_depth)
+        kw = comp_kwargs(cfg, out_alpha)
+        depth = inst.depth_f32 if cfg.output_depth else None
+        k_out = gt.composite_tiles_packed(
+            inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth, **kw
+        )
+        p_out = composite_tiles_packed_plain(
+            inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth, **kw
+        )
+        worst = max(worst, compare(torch, name, k_out, p_out, rows, ("depth",)))
+
+    # 32 tiles of the full 1080p frame: the 16 heaviest and 16 random.
+    scene3m, cam3m, cfg3m = big
+    inst = packed_frame(gt, scene3m, cam3m, cfg3m, False)
+    heavy = torch.topk(inst.tile_count, 16).indices.tolist()
+    gen = torch.Generator().manual_seed(0)
+    rest = [t for t in torch.randperm(cfg3m.num_tiles, generator=gen).tolist()
+            if t not in heavy][:16]
+    tiles = heavy + rest
+    kw = comp_kwargs(cfg3m, False)
+    k_full = gt.composite_tiles_packed(
+        inst.packed_feats, inst.tile_start, inst.tile_count, **kw
+    )
+    k_tiles = tile_blocks(k_full, tiles, tiles_x=cfg3m.tiles_x,
+                          tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
+    p_tiles = composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles, **kw
+    )
+    # Plain blocks include pixels past the image edge; the kernel writes
+    # only in-image pixels, which tile_blocks pads with zeros.
+    in_img = tile_blocks(torch.ones_like(k_full[:1]), tiles, tiles_x=cfg3m.tiles_x,
+                         tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
+    worst = max(worst, compare(
+        torch, "1080p 3M: 32 tiles", k_tiles, p_tiles * in_img, ("r", "g", "b")
+    ))
+    return worst, inst, tiles
+
+
+def phase_goldens(torch, gt):
+    import numpy as np
+
+    for name in GOLDEN_NAMES:
+        scene, cam, cfg, tv = golden_setup(name)
+        fb, stats = gt.render_frame(
+            scene, cam.params(cfg.k_sigma, device=DEVICE), cfg, time_value=tv
+        )
+        golden = np.load(
+            os.path.join(REPO, "tests", "fixtures", f"golden_{name}.npz")
+        )["framebuffer"]
+        fb = fb.cpu().numpy()
+        check(fb.shape == golden.shape, f"golden {name}: shape {fb.shape}")
+        score = psnr(fb, golden)
+        out({"golden": name, "psnr_db": score, "overflow": bool(stats.overflow)})
+        check(score >= GOLDEN_MIN_PSNR, f"golden {name}: {score:.2f} dB < 40")
+
+
+def phase_full(torch, gt, label, setup, card, frames=10):
+    """The main path at full width: render_frame on one scene, counts,
+    frame and kernel times, kernel launches on the timed run."""
+    import numpy as np
+
+    comp = gt.composite_tiles_packed
+    scene, cam, cfg = setup
+    camp = cam.params(cfg.k_sigma, device=DEVICE)
+    comp.launches = 0
+    fb, stats = gt.render_frame(scene, camp, cfg)
+    torch.cuda.synchronize()
+    frame_s, frame_ev_ms = [], []
+    for _ in range(frames):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fb, stats = gt.render_frame(scene, camp, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        frame_ev_ms.append(e0.elapsed_time(e1))
+    launches = comp.launches
+
+    img = fb.cpu().numpy()
+    check(img.shape == (3, cfg.height, cfg.width), f"{label}: shape {img.shape}")
+    check(np.isfinite(img).all(), f"{label}: non-finite pixels")
+    check(not bool(stats.overflow), f"{label}: overflow")
+    check(launches == frames + 1, f"{label}: {launches} kernel launches")
+    mean = float(img.mean())
+    check(0.0 < mean < 1.0, f"{label}: image mean {mean}")
+
+    preprocess, emit = frame_stages(gt, scene, cam, cfg, False)
+    proj = preprocess()
+    preprocess_ms = cuda_ms(torch, preprocess, frames)
+    emission_ms = cuda_ms(torch, lambda: emit(proj), frames)
+    inst = emit(proj)
+    kw = comp_kwargs(cfg, False)
+    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
+    comp(inst.packed_feats, inst.tile_start, inst.tile_count,
+         chunks_walked=walked, **kw)
+    kernel_ms = cuda_ms(torch, lambda: comp(
+        inst.packed_feats, inst.tile_start, inst.tile_count, **kw), frames)
+    bound_ms, bound_by, pairs, in_box = compositor_bound_ms(
+        torch, inst, cfg, walked, 3
+    )
+    counts = {"num_instances": int(stats.num_instances),
+              "num_culled": int(stats.num_culled)}
+    res = {
+        "frame": label,
+        "gaussians": scene.num_gaussians,
+        "resolution": f"{cfg.width}x{cfg.height}",
+        **counts,
+        "overflow": bool(stats.overflow),
+        "center_clipped": bool(stats.center_clipped),
+        "jax_counts": REF_COUNTS[label],
+        "image_mean": mean,
+        "frame_ms_median": 1e3 * statistics.median(frame_s),
+        "frame_ms_median_cuda_events": statistics.median(frame_ev_ms),
+        "frame_ms_all": [1e3 * t for t in frame_s],
+        "kernel_ms_median": kernel_ms,
+        "preprocess_ms_median": preprocess_ms,
+        "emission_sort_ms_median": emission_ms,
+        "kernel_launches": launches,
+        "pairs_walked": pairs,
+        "pairs_in_aabb": in_box,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "card": card,
+    }
+    out(res)
+    check(counts == REF_COUNTS[label],
+          f"{label}: counts {counts} differ from the JAX package's {REF_COUNTS[label]}")
+    return res, inst
+
+
+def phase_profile(torch, gt, setup, card, frame_ms, frames=3):
+    """torch.profiler over a few frames of one setup: the device's busy
+    time per frame (summed kernel time), its share of ``frame_ms`` (the
+    unprofiled median frame), and where the device time goes, by kernel
+    and by PyTorch op. The profiled wall time is printed too; it carries
+    the profiler's own overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam, cfg = setup
+    camp = cam.params(cfg.k_sigma, device=DEVICE)
+    gt.render_frame(scene, camp, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            gt.render_frame(scene, camp, cfg)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+
+    def dev_ms(e, self_only):
+        name = "self_device_time_total" if self_only else "device_time_total"
+        if not hasattr(e, name):
+            name = name.replace("device", "cuda")
+        return getattr(e, name) / 1e3 / frames
+
+    events = prof.key_averages()
+    kernels = sorted(
+        (e for e in events if e.device_type == DeviceType.CUDA),
+        key=lambda e: -dev_ms(e, True),
+    )
+    busy_ms = sum(dev_ms(e, True) for e in kernels)
+    ops = sorted(
+        (e for e in events
+         if e.device_type == DeviceType.CPU and e.key.startswith("aten::")),
+        key=lambda e: -dev_ms(e, False),
+    )
+    out({
+        "profile": "bench_3m render_frame",
+        "wall_ms_per_frame_profiled": wall_ms,
+        "device_busy_ms_per_frame": busy_ms if busy_ms > 0 else "not measured",
+        "device_busy_share_of_unprofiled_frame":
+            busy_ms / frame_ms if busy_ms > 0 else "not measured",
+        "top_kernels_ms": [[e.key[:70], dev_ms(e, True)] for e in kernels[:8]],
+        "top_aten_ops_device_ms": [[e.key, dev_ms(e, False)] for e in ops[:10]],
+        "card": card,
+    })
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
+        return 1
+    sys.path.insert(0, REPO)
+    import gaussianrenderer_tpu_torch as gt
+    from gaussianrenderer_tpu_torch import _build
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
+        composite_tiles_packed_plain,
+    )
+
+    t_start = time.perf_counter()
+    with Phase("device", torch):
+        card = card_line()
+        out({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+             "device_count": torch.cuda.device_count()})
+
+    with Phase("build", torch):
+        secs = _build.build_all()
+        regs = []
+        for name, text in _build.build_logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas[{name}]: {line.strip()}")
+                if "Used" in line and "registers" in line:
+                    regs.append(int(line.split("Used")[1].split("registers")[0]))
+        out({"build_seconds": secs, "nvcc": _build.find_nvcc(),
+             "max_registers_per_thread": max(regs) if regs else None})
+        _build.load("tile_render2")
+
+    with Phase("scene-3m", torch):
+        big = bench_3m_setup()
+
+    with Phase("kernel-vs-plain", torch):
+        max_err, big_inst, tiles = phase_kernel_vs_plain(torch, gt, big)
+
+    with Phase("goldens", torch):
+        phase_goldens(torch, gt)
+
+    with Phase("full-3m", torch):
+        res3m, inst3m = phase_full(torch, gt, "bench_3m", big, card)
+        cfg = big[2]
+        kw = comp_kwargs(cfg, False)
+        plain_ms = cuda_ms(torch, lambda: composite_tiles_packed_plain(
+            inst3m.packed_feats, inst3m.tile_start, inst3m.tile_count,
+            tiles=tiles, **kw), 1)
+        # The kernel over the same 32 tiles: every other tile's range empty.
+        only = torch.zeros_like(inst3m.tile_count)
+        sel = torch.as_tensor(tiles, device=DEVICE)
+        only[sel] = inst3m.tile_count[sel]
+        kernel_tiles_ms = cuda_ms(torch, lambda: gt.composite_tiles_packed(
+            inst3m.packed_feats, inst3m.tile_start, only, **kw), 5)
+        out({"tiles": len(tiles), "plain_ms": plain_ms,
+             "kernel_ms_same_tiles": kernel_tiles_ms, "card": card})
+
+    with Phase("profile-3m", torch):
+        phase_profile(torch, gt, big, card, res3m["frame_ms_median"])
+    del big, big_inst, inst3m
+    torch.cuda.empty_cache()
+
+    with Phase("full-trained-500k", torch):
+        res500, _ = phase_full(torch, gt, "trained_500k", trained_500k_setup(), card)
+
+    out({"kernels": [{
+        "name": "tile_render2",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/tile_render2.cu",
+        "replaces": "gaussianrenderer_tpu/ops/pallas/tile_render2.py:158",
+        "launches": res3m["kernel_launches"],
+        "max_abs_err": max_err,
+        "ms": res3m["kernel_ms_median"],
+        "plain_ms": plain_ms,
+        "bound_ms": res3m["bound_ms"],
+        "bound_by": res3m["bound_by"],
+        "library_ms": None,
+        "shape": "3M splats, 1920x1080, 32x32 tiles, chunk 256",
+        "plain_scope": f"{len(tiles)} tiles of that frame (no yardstick)",
+        "kernel_ms_same_tiles": kernel_tiles_ms,
+        "trained_500k": {"ms": res500["kernel_ms_median"],
+                         "launches": res500["kernel_launches"],
+                         "bound_ms": res500["bound_ms"],
+                         "bound_by": res500["bound_by"]},
+    }]})
+    log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
+    out(card_line())
+    out({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. Entry points default to
+    ``"cuda"``; asking for CUDA where there is none raises instead of
+    quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev

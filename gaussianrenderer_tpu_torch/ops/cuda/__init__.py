@@ -1,0 +1,1 @@
+"""Wrappers of the hand-written CUDA kernels, each beside its plain PyTorch version."""

@@ -1,0 +1,80 @@
+"""Spherical-harmonics view-dependent color (PyTorch port).
+
+Counterpart of ``gaussianrenderer_tpu.ops.sh``: the real SH basis up to
+degree 3, view direction = normalize(splat_pos − camera_pos), result
+offset by +0.5 and clamped to [0, 1]. The operation order matches the
+JAX version term for term, so float32 results agree to rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.4886025119029199
+SH_C2 = (
+    1.0925484305920792,
+    -1.0925484305920792,
+    0.31539156525252005,
+    -1.0925484305920792,
+    0.5462742152960396,
+)
+SH_C3 = (
+    -0.5900435899266435,
+    2.890611442640554,
+    -0.4570457994644658,
+    0.3731763325901154,
+    -0.4570457994644658,
+    1.445305721320277,
+    -0.5900435899266435,
+)
+
+
+def eval_sh_columns(
+    sh_t: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    z: torch.Tensor,
+    degree: int,
+    clamp: bool = True,
+) -> torch.Tensor:
+    """Column-wise SH evaluation: ``sh_t`` is the transposed
+    (3·(deg+1)², N) coefficient matrix, (x, y, z) the (N,) unit view
+    direction. Returns (N, 3) colors."""
+    n_coeff_stored = sh_t.shape[0] // 3
+    max_degree_stored = int(round(n_coeff_stored**0.5)) - 1
+    degree = min(degree, max_degree_stored)
+
+    basis = [torch.full_like(x, SH_C0)]
+    if degree > 0:
+        basis += [-SH_C1 * y, SH_C1 * z, -SH_C1 * x]
+        if degree > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            basis += [
+                SH_C2[0] * xy,
+                SH_C2[1] * yz,
+                SH_C2[2] * (2.0 * zz - xx - yy),
+                SH_C2[3] * xz,
+                SH_C2[4] * (xx - yy),
+            ]
+            if degree > 2:
+                basis += [
+                    SH_C3[0] * y * (3.0 * xx - yy),
+                    SH_C3[1] * xy * z,
+                    SH_C3[2] * y * (4.0 * zz - xx - yy),
+                    SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+                    SH_C3[4] * x * (4.0 * zz - xx - yy),
+                    SH_C3[5] * z * (xx - yy),
+                    SH_C3[6] * x * (xx - 3.0 * yy),
+                ]
+    channels = []
+    for ch in range(3):
+        acc = basis[0] * sh_t[ch]
+        for c in range(1, len(basis)):
+            acc = acc + basis[c] * sh_t[3 * c + ch]
+        channels.append(acc)
+    color = torch.stack(channels, dim=-1)
+    if clamp:
+        color = torch.clamp(color + 0.5, 0.0, 1.0)
+    return color
