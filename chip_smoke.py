@@ -12,10 +12,17 @@ its elapsed seconds:
 2. build            — nvcc build of every kernel (seconds, registers);
 3. scene-3m         — the bench.py headline scene (3M splats, Morton order);
 4. kernel-vs-plain  — each kernel against its plain PyTorch version on the
-                      card: three 800×600 packed frames (plain rgb; alpha +
-                      depth + background; wide splats) and 32 tiles of the
-                      3M-splat 1080p frame (the 16 with the most instances,
-                      16 seeded random);
+                      card: the compositor, without and with its saturation
+                      census (``with_sat``), on three 800×600 packed frames
+                      (plain rgb; alpha + depth + background; wide splats)
+                      and 32 tiles of the 3M-splat 1080p frame (the 16 with
+                      the most instances, 16 seeded random); the table
+                      lookup, bit for bit, on the inputs the culled 3M
+                      frames give it (the pyramid of frame 1's cutoff
+                      image sampled by all 3M splats; frame 2's candidate
+                      lanes), with out-of-range indices, and on a 4K
+                      pyramid (more than 16,384 entries); the lookup's
+                      times beside its bound and one ``torch.take``;
 5. goldens          — the five tests/fixtures/golden_*.npz setups rendered
                       by the port, PSNR ≥ 40 dB against each framebuffer;
 6. full-3m, profile-3m, full-trained-500k
@@ -25,7 +32,17 @@ its elapsed seconds:
                       the JAX package's recorded ones, median frame, stage
                       and kernel times, and the kernel's launch count;
                       a torch.profiler pass over the 3M frame (device busy
-                      share, device time by kernel and by PyTorch op).
+                      share, device time by kernel and by PyTorch op);
+7. session-3m, session-trained-500k
+                    — the main path of the culled session: ``make_renderer``
+                      with ``sat_cull=True`` on the same two scenes at
+                      1920×1080. Frame 1 culls nothing and equals the
+                      unculled frame; frame 2 at the same pose culls, has no
+                      risk blocks and stays within 2e-5 of the unculled
+                      frame; an orbit of 10 frames at 3°/frame stays
+                      ≥ 40 dB against unculled renders (5°/frame printed,
+                      not gated); frame times, stage times and each
+                      kernel's launches per frame.
 
 Then one JSON line of per-kernel numbers, the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -34,6 +51,8 @@ the script exits non-zero without the ok line. Logs go to stderr.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -52,6 +71,9 @@ DEVICE = "cuda"
 KERNEL_MAX_ABS = 2e-3
 KERNEL_MEAN_ABS = 1e-5
 GOLDEN_MIN_PSNR = 40.0
+#: The repo's fidelity gate, here for culled orbit frames against
+#: unculled renders of the same pose.
+ORBIT_MIN_PSNR = 40.0
 
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 #: cores and HBM bandwidth, at the 700 W power limit.
@@ -79,6 +101,22 @@ REF_COUNTS = {
     "bench_3m": {"num_instances": 5585012, "num_culled": 2922824},
     "trained_500k": {"num_instances": 1592730, "num_culled": 434930},
 }
+
+
+#: The TPU run's same-pose frame 2 of bench_3m with the cull on
+#: (BENCH_r05.json tail, "sat-cull warm"): printed beside the port's
+#: numbers, never gated (the TPU's quadratic is the MXU form, so a few
+#: blocks may saturate in another chunk).
+TPU_SAT_FRAME2 = {"sat_culled": 2113137, "num_instances": 1852983}
+#: Same-pose frame 2 against the unculled frame: culled splats carry no
+#: weight, so only summation order may differ (tests/test_satcull.py).
+SAT_EXACT_ATOL = 2e-5
+#: The orbit's step (tests/test_satcull.py) and bench.py's.
+ORBIT_DEG = 3.0
+BENCH_ORBIT_DEG = 5.0
+#: 4K frame's saturation grid (3840×2160 in 16-px blocks): its pyramid has
+#: more than 16,384 entries.
+GRID_4K = (135, 240)
 
 
 def log(*args):
@@ -368,6 +406,18 @@ def phase_kernel_vs_plain(torch, gt, big):
             inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth, **kw
         )
         worst = max(worst, compare(torch, name, k_out, p_out, rows, ("depth",)))
+        # The census: the same rows, and every block's lane equal.
+        k_out, k_sat = gt.composite_tiles_packed(
+            inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth,
+            with_sat=True, **kw
+        )
+        p_out, p_sat = composite_tiles_packed_plain(
+            inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth,
+            with_sat=True, **kw
+        )
+        worst = max(worst, compare(torch, f"{name} with_sat", k_out, p_out, rows,
+                                   ("depth",)))
+        check_sat(torch, f"{name} with_sat", k_sat, p_sat)
 
     # 32 tiles of the full 1080p frame: the 16 heaviest and 16 random.
     scene3m, cam3m, cfg3m = big
@@ -393,7 +443,127 @@ def phase_kernel_vs_plain(torch, gt, big):
     worst = max(worst, compare(
         torch, "1080p 3M: 32 tiles", k_tiles, p_tiles * in_img, ("r", "g", "b")
     ))
+    k_full, k_sat = gt.composite_tiles_packed(
+        inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True, **kw
+    )
+    p_tiles, p_sat = composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles,
+        with_sat=True, **kw
+    )
+    k_tiles = tile_blocks(k_full, tiles, tiles_x=cfg3m.tiles_x,
+                          tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
+    worst = max(worst, compare(torch, "1080p 3M: 32 tiles with_sat", k_tiles,
+                               p_tiles * in_img, ("r", "g", "b")))
+    n_blk = k_sat.numel() // cfg3m.num_tiles
+    sel = torch.as_tensor(tiles, device=DEVICE)
+    check_sat(torch, "1080p 3M: 32 tiles with_sat",
+              k_sat.view(cfg3m.num_tiles, n_blk)[sel].reshape(-1), p_sat)
     return worst, inst, tiles
+
+
+def check_sat(torch, name, k_sat, p_sat):
+    """The census lanes of kernel and plain version, equal on every block."""
+    diff = int((k_sat != p_sat).sum())
+    out({"case": name, "sat_blocks": k_sat.numel(), "sat_blocks_differing": diff,
+         "sat_blocks_recorded": int((k_sat >= 0).sum())})
+    check(k_sat.dtype == torch.int32 and k_sat.shape == p_sat.shape and diff == 0,
+          f"{name}: {diff} census blocks differ between kernel and plain version")
+
+
+def capture_lookups(gt, fn):
+    """Runs ``fn()`` with the lookup wrapper recording its inputs as the
+    cull (``satcull.rect_cutoff``) and emission (per-position cull) call
+    it: {"rect_cutoff" | "per_position": (table, idx, kwargs)}."""
+    from gaussianrenderer_tpu_torch.ops import instances, satcull
+
+    seen = {}
+    saved = (satcull.table_lookup, instances.table_lookup)
+
+    def recorder(name, wrapped):
+        def record(table, idx, **kw):
+            seen[name] = (table, idx, kw)
+            return wrapped(table, idx, **kw)
+        return record
+
+    satcull.table_lookup = recorder("rect_cutoff", saved[0])
+    instances.table_lookup = recorder("per_position", saved[1])
+    try:
+        fn()
+    finally:
+        satcull.table_lookup, instances.table_lookup = saved
+    return seen
+
+
+def lookup_bound_ms(n, idx_bytes, m):
+    """Least time of one lookup on an H100: each index read once, each
+    output written once, the table read once, over the HBM rate (it does
+    no arithmetic to speak of)."""
+    return (n * (idx_bytes + 4) + 4 * m) / PEAK_HBM_BYTES * 1e3
+
+
+def phase_lookup(torch, gt, big, card):
+    """The lookup kernel against its plain version, bit for bit, on the
+    inputs bench_3m's culled frames give it, with out-of-range indices,
+    and on a 4K pyramid; then its times at the 3M rect_cutoff shape."""
+    from gaussianrenderer_tpu_torch.ops import satcull
+    from gaussianrenderer_tpu_torch.ops.cuda.lookup import bf16_ceil, table_lookup_plain
+
+    scene, cam, cfg = big
+    scfg = dataclasses.replace(cfg, sat_cull=True)
+    camp = cam.params(cfg.k_sigma, device=DEVICE)
+    init = satcull.initial_cutoff(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h,
+                                  device=DEVICE)
+    _, _, cut1 = gt.render_frame(scene, camp, scfg, sat_state=init)
+    seen = capture_lookups(gt, lambda: gt.render_frame(scene, camp, scfg, sat_state=cut1))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rect_t, rect_i, rect_kw = seen["rect_cutoff"]
+    pos_t, pos_i, pos_kw = seen["per_position"]
+    m = rect_t.shape[0]
+    wild = torch.randint(-(2**31), 2**31 - 1, (65536,), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    near_edge = torch.randint(-64, m + 64, (65536,), generator=gen, device=DEVICE,
+                              dtype=torch.int32)
+    img4k = torch.nn.functional.interpolate(cut1[None, None], size=GRID_4K,
+                                            mode="nearest")[0, 0]
+    tab4k = bf16_ceil(satcull.build_pyramid(img4k))
+    m4k = tab4k.shape[0]
+    idx4k = torch.randint(-64, m4k + 64, (3_000_000,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    cases = (
+        ("1080p pyramid, 3M rect_cutoff indices", rect_t, rect_i, rect_kw),
+        ("frame-2 candidate lanes (int64 tile ids)", pos_t, pos_i, pos_kw),
+        ("1080p pyramid, out-of-range indices", rect_t, torch.cat([wild, near_edge]),
+         rect_kw),
+        ("4K pyramid", tab4k, idx4k, dict(r=128 * -(-m4k // 16384), q=128)),
+    )
+    max_err = 0.0
+    for name, table, idx, kw in cases:
+        got = gt.table_lookup(table, idx, **kw)
+        want = table_lookup_plain(table, idx, **kw)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        out({"case": f"lookup: {name}", "n": idx.numel(), "table_entries": table.numel(),
+             "index_dtype": str(idx.dtype), "elements_differing": diff, "max_abs": err})
+        check(diff == 0, f"lookup {name}: {diff} outputs differ from the plain version")
+
+    def times(table, idx, kw, reps=20):
+        ms = cuda_ms(torch, lambda: gt.table_lookup(table, idx, **kw), reps)
+        plain_ms = cuda_ms(torch, lambda: table_lookup_plain(table, idx, **kw), reps)
+        tab_r = table.to(torch.bfloat16).to(torch.float32)
+        idx_c = torch.clamp(idx.to(torch.int64), 0, table.numel() - 1)
+        library_ms = cuda_ms(torch, lambda: torch.take(tab_r, idx_c), reps)
+        return {
+            "n": idx.numel(), "index_bytes": idx.element_size(), "table_entries": table.numel(),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": lookup_bound_ms(idx.numel(), idx.element_size(), table.numel()),
+        }
+
+    res = {"rect_cutoff": times(rect_t, rect_i, rect_kw),
+           "per_position": times(pos_t, pos_i, pos_kw), "max_abs_err": max_err,
+           "card": card}
+    out({"lookup_times": res})
+    return res
 
 
 def phase_goldens(torch, gt):
@@ -422,7 +592,7 @@ def phase_full(torch, gt, label, setup, card, frames=10):
     comp = gt.composite_tiles_packed
     scene, cam, cfg = setup
     camp = cam.params(cfg.k_sigma, device=DEVICE)
-    comp.launches = 0
+    comp.launches = gt.table_lookup.launches = 0
     fb, stats = gt.render_frame(scene, camp, cfg)
     torch.cuda.synchronize()
     frame_s, frame_ev_ms = [], []
@@ -437,12 +607,14 @@ def phase_full(torch, gt, label, setup, card, frames=10):
         frame_s.append(time.perf_counter() - t0)
         frame_ev_ms.append(e0.elapsed_time(e1))
     launches = comp.launches
+    lookup_launches = gt.table_lookup.launches
 
     img = fb.cpu().numpy()
     check(img.shape == (3, cfg.height, cfg.width), f"{label}: shape {img.shape}")
     check(np.isfinite(img).all(), f"{label}: non-finite pixels")
     check(not bool(stats.overflow), f"{label}: overflow")
     check(launches == frames + 1, f"{label}: {launches} kernel launches")
+    check(lookup_launches == 0, f"{label}: {lookup_launches} lookups on the unculled path")
     mean = float(img.mean())
     check(0.0 < mean < 1.0, f"{label}: image mean {mean}")
 
@@ -490,23 +662,21 @@ def phase_full(torch, gt, label, setup, card, frames=10):
     return res, inst
 
 
-def phase_profile(torch, gt, setup, card, frame_ms, frames=3):
-    """torch.profiler over a few frames of one setup: the device's busy
-    time per frame (summed kernel time), its share of ``frame_ms`` (the
-    unprofiled median frame), and where the device time goes, by kernel
-    and by PyTorch op. The profiled wall time is printed too; it carries
-    the profiler's own overhead."""
+def phase_profile(torch, label, render_once, card, frame_ms, frames=3):
+    """torch.profiler over a few frames (``render_once()`` each): the
+    device's busy time per frame (summed kernel time), its share of
+    ``frame_ms`` (the unprofiled median frame), and where the device time
+    goes, by kernel and by PyTorch op. The profiled wall time is printed
+    too; it carries the profiler's own overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    scene, cam, cfg = setup
-    camp = cam.params(cfg.k_sigma, device=DEVICE)
-    gt.render_frame(scene, camp, cfg)
+    render_once()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
-            gt.render_frame(scene, camp, cfg)
+            render_once()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / frames
 
@@ -528,7 +698,7 @@ def phase_profile(torch, gt, setup, card, frame_ms, frames=3):
         key=lambda e: -dev_ms(e, False),
     )
     out({
-        "profile": "bench_3m render_frame",
+        "profile": label,
         "wall_ms_per_frame_profiled": wall_ms,
         "device_busy_ms_per_frame": busy_ms if busy_ms > 0 else "not measured",
         "device_busy_share_of_unprofiled_frame":
@@ -537,6 +707,182 @@ def phase_profile(torch, gt, setup, card, frame_ms, frames=3):
         "top_aten_ops_device_ms": [[e.key, dev_ms(e, False)] for e in ops[:10]],
         "card": card,
     })
+
+
+def psnr_t(a, b):
+    """PSNR (peak 1) of two tensors on the card; "inf" when equal."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return "inf" if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+def orbit_poses(cam, cfg, step_deg, frames):
+    """Camera params of ``frames`` poses orbiting ``step_deg`` per frame
+    from ``cam`` (which is left as it is)."""
+    c = copy.deepcopy(cam)
+    poses = []
+    for _ in range(frames):
+        c.orbit(step_deg, 0.0)
+        c.update_camera_matrices()
+        poses.append(c.params(cfg.k_sigma, device=DEVICE))
+    return poses
+
+
+def host_ms(torch, fn):
+    """(result, ms) of ``fn()`` on the host clock, the card synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_session(torch, gt, label, setup, card, frames=10):
+    """The culled session's main path: ``make_renderer(sat_cull=True)``
+    at full width. Unculled references of every pose are rendered first;
+    then the kernels' counts are set to 0, the session renders frame 1,
+    frame 2 at the same pose and an orbit of ``frames`` at 3°/frame, and
+    the counts are read. Then an ungated 5°/frame orbit, and CUDA-event
+    stage times of a culled frame."""
+    from gaussianrenderer_tpu_torch import render as prender
+    from gaussianrenderer_tpu_torch.ops import satcull
+
+    scene, cam, cfg = setup
+    scfg = dataclasses.replace(cfg, sat_cull=True)
+    comp, look = gt.composite_tiles_packed, gt.table_lookup
+    p0 = cam.params(cfg.k_sigma, device=DEVICE)
+    poses3 = orbit_poses(cam, cfg, ORBIT_DEG, frames)
+    poses5 = orbit_poses(cam, cfg, BENCH_ORBIT_DEG, frames)
+
+    gt.render_frame(scene, p0, cfg)  # warm-up
+    ref0, ref_st = gt.render_frame(scene, p0, cfg)
+    refs3, unculled_ms = [], []
+    for p in poses3:
+        (fb, _), ms = host_ms(torch, lambda: gt.render_frame(scene, p, cfg))
+        refs3.append(fb)
+        unculled_ms.append(ms)
+    refs5 = [gt.render_frame(scene, p, cfg)[0] for p in poses5]
+
+    render = gt.make_renderer(scene, scfg)
+    comp.launches = look.launches = 0
+    (fb1, st1), ms1 = host_ms(torch, lambda: render(p0))
+    (fb2, st2), ms2 = host_ms(torch, lambda: render(p0))
+    orbit = []
+    for p in poses3:
+        (fb, st), ms = host_ms(torch, lambda: render(p))
+        orbit.append((fb, st, ms))
+    launches = {"tile_render2": comp.launches, "lookup": look.launches}
+    n_frames = 2 + frames
+
+    # Checks of the counted run.
+    check(launches == {"tile_render2": n_frames, "lookup": 2 * n_frames},
+          f"{label} session: kernel launches {launches} in {n_frames} frames")
+    check(fb1.shape == (3, cfg.height, cfg.width) and bool(torch.isfinite(fb1).all()),
+          f"{label} session: frame 1 shape {tuple(fb1.shape)} or non-finite pixels")
+    check(int(st1.sat_culled) == 0, f"{label}: frame 1 culled {int(st1.sat_culled)}")
+    counts1 = {"num_instances": int(st1.num_instances), "num_culled": int(st1.num_culled)}
+    check(counts1 == REF_COUNTS[label],
+          f"{label}: frame 1 counts {counts1} differ from {REF_COUNTS[label]}")
+    check(torch.equal(fb1, ref0), f"{label}: frame 1 differs from the unculled frame")
+    err2 = float((fb2 - ref0).abs().max())
+    frame2 = {"sat_culled": int(st2.sat_culled), "num_instances": int(st2.num_instances),
+              "sat_risk": int(st2.sat_risk), "num_culled": int(st2.num_culled),
+              "max_abs_vs_unculled": err2}
+    check(frame2["sat_risk"] == 0, f"{label}: frame 2 sat_risk {frame2['sat_risk']}")
+    check(frame2["sat_culled"] > 0, f"{label}: frame 2 culled nothing")
+    check(err2 <= SAT_EXACT_ATOL, f"{label}: frame 2 max |fb − unculled| {err2:.3g}")
+    psnr3 = [psnr_t(fb, ref) for (fb, _, _), ref in zip(orbit, refs3)]
+    for i, v in enumerate(psnr3):
+        check(v == "inf" or v >= ORBIT_MIN_PSNR,
+              f"{label}: orbit frame {i + 1} at {ORBIT_DEG}°/frame: {v} dB")
+
+    render5 = gt.make_renderer(scene, scfg)
+    render5(p0)
+    psnr5 = []
+    for p, ref in zip(poses5, refs5):
+        fb, _ = render5(p)
+        psnr5.append(psnr_t(fb, ref))
+
+    # Stage times of a culled frame: the same-pose frame 2.
+    init = satcull.initial_cutoff(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h,
+                                  device=DEVICE)
+    _, _, cut1 = gt.render_frame(scene, p0, scfg, sat_state=init)
+    preprocess, _ = frame_stages(gt, scene, cam, cfg, False)
+    geo = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
+               tile_h=cfg.tile_h)
+    proj = preprocess()
+    proj_c, _, cut_q = prender._sat_cull(proj, p0, scfg, cut1)
+
+    def emit():
+        return gt.build_packed_instances(proj_c, near=p0.near, far=p0.far, want_depth=True,
+                                         sat_cut_q=cut_q, **geo)
+
+    inst = emit()
+    kw = comp_kwargs(cfg, False)
+    _, sat_idx = comp(inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True,
+                      **kw)
+    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
+    comp(inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=walked, **kw)
+    bound_ms, bound_by, _, _ = compositor_bound_ms(torch, inst, cfg, walked, 3)
+    sy, sx = satcull.sat_grid(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h)
+    eff = satcull.dilate_cutoff(cut1, scfg.sat_dilate)
+    table = satcull.build_pyramid(eff)
+    step = (p0.far - p0.near) / float((1 << min(32 - cfg.num_tiles.bit_length(), 24)) - 1)
+    stages = {
+        "projection": cuda_ms(torch, preprocess, frames),
+        "cull": cuda_ms(torch, lambda: prender._sat_cull(proj, p0, scfg, cut1), frames),
+        "cull_part_dilate_pyramid": cuda_ms(torch, lambda: satcull.build_pyramid(
+            satcull.dilate_cutoff(cut1, scfg.sat_dilate)), frames),
+        "cull_part_rect_cutoff": cuda_ms(torch, lambda: satcull.rect_cutoff(
+            table, proj.aabb_px, sx=sx, sy=sy), frames),
+        "cull_part_tile_cutoff_q": cuda_ms(torch, lambda: satcull.tile_cutoff_q(
+            eff, near=p0.near, depth_step=step, margin=scfg.sat_margin, **geo), frames),
+        "emission_sort": cuda_ms(torch, emit, frames),
+        "compositor_with_sat": cuda_ms(torch, lambda: comp(
+            inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True, **kw),
+            frames),
+        "compositor_plain": cuda_ms(torch, lambda: comp(
+            inst.packed_feats, inst.tile_start, inst.tile_count, **kw), frames),
+        "cutoff_from_sat": cuda_ms(torch, lambda: satcull.cutoff_from_sat(
+            sat_idx, inst.depth_f32, **geo), frames),
+    }
+    orbit_ms = [ms for _, _, ms in orbit]
+    # Where a culled frame's time goes: a session at its same-pose frame 2
+    # and later (the steady culled state).
+    render_p = gt.make_renderer(scene, scfg)
+    render_p(p0)
+    same_ms = [host_ms(torch, lambda: render_p(p0))[1] for _ in range(frames)]
+    phase_profile(torch, f"{label} culled session frame (same pose, frame 2 on)",
+                  lambda: render_p(p0), card, statistics.median(same_ms))
+    res = {
+        "session": label,
+        "gaussians": scene.num_gaussians,
+        "resolution": f"{cfg.width}x{cfg.height}",
+        "frame1": {**counts1, "sat_culled": int(st1.sat_culled), "ms": ms1},
+        "frame2_same_pose": {**frame2, "ms": ms2},
+        "same_pose_frames_2_on_ms_all": same_ms,
+        "tpu_frame2_same_pose": TPU_SAT_FRAME2 if label == "bench_3m" else None,
+        "orbit_3deg": {
+            "frame_ms_median": statistics.median(orbit_ms),
+            "frame_ms_min": min(orbit_ms), "frame_ms_max": max(orbit_ms),
+            "frame_ms_all": orbit_ms,
+            "unculled_frame_ms_median": statistics.median(unculled_ms),
+            "unculled_frame_ms_all": unculled_ms,
+            "psnr_db_vs_unculled": psnr3,
+            "sat_culled": [int(st.sat_culled) for _, st, _ in orbit],
+            "num_instances": [int(st.num_instances) for _, st, _ in orbit],
+            "sat_risk": [int(st.sat_risk) for _, st, _ in orbit],
+        },
+        "orbit_5deg_psnr_db_vs_unculled_ungated": psnr5,
+        "culled_frame_stage_ms": stages,
+        "culled_frame_compositor_bound_ms": bound_ms,
+        "culled_frame_compositor_bound_by": bound_by,
+        "kernel_launches": launches,
+        "kernel_launches_per_frame": {k: v / n_frames for k, v in launches.items()},
+        "card": card,
+    }
+    out(res)
+    return res
 
 
 def main() -> int:
@@ -569,13 +915,15 @@ def main() -> int:
                     regs.append(int(line.split("Used")[1].split("registers")[0]))
         out({"build_seconds": secs, "nvcc": _build.find_nvcc(),
              "max_registers_per_thread": max(regs) if regs else None})
-        _build.load("tile_render2")
+        for name in _build.SOURCES:
+            _build.load(name)
 
     with Phase("scene-3m", torch):
         big = bench_3m_setup()
 
     with Phase("kernel-vs-plain", torch):
         max_err, big_inst, tiles = phase_kernel_vs_plain(torch, gt, big)
+        lookup_res = phase_lookup(torch, gt, big, card)
 
     with Phase("goldens", torch):
         phase_goldens(torch, gt)
@@ -597,12 +945,23 @@ def main() -> int:
              "kernel_ms_same_tiles": kernel_tiles_ms, "card": card})
 
     with Phase("profile-3m", torch):
-        phase_profile(torch, gt, big, card, res3m["frame_ms_median"])
+        scene, cam, cfg = big
+        camp = cam.params(cfg.k_sigma, device=DEVICE)
+        phase_profile(torch, "bench_3m render_frame",
+                      lambda: gt.render_frame(scene, camp, cfg), card,
+                      res3m["frame_ms_median"])
+
+    with Phase("session-3m", torch):
+        sess3m = phase_session(torch, gt, "bench_3m", big, card)
     del big, big_inst, inst3m
     torch.cuda.empty_cache()
 
     with Phase("full-trained-500k", torch):
-        res500, _ = phase_full(torch, gt, "trained_500k", trained_500k_setup(), card)
+        setup500 = trained_500k_setup()
+        res500, _ = phase_full(torch, gt, "trained_500k", setup500, card)
+
+    with Phase("session-trained-500k", torch):
+        sess500 = phase_session(torch, gt, "trained_500k", setup500, card)
 
     out({"kernels": [{
         "name": "tile_render2",
@@ -623,6 +982,27 @@ def main() -> int:
                          "launches": res500["kernel_launches"],
                          "bound_ms": res500["bound_ms"],
                          "bound_by": res500["bound_by"]},
+        "culled_frame_with_sat_ms": sess3m["culled_frame_stage_ms"]["compositor_with_sat"],
+        "culled_frame_plain_ms": sess3m["culled_frame_stage_ms"]["compositor_plain"],
+        "session_launches": sess3m["kernel_launches"]["tile_render2"],
+    }, {
+        "name": "lookup",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/lookup.cu",
+        "replaces": "gaussianrenderer_tpu/ops/pallas/lookup.py:58",
+        "launches": sess3m["kernel_launches"]["lookup"],
+        "max_abs_err": lookup_res["max_abs_err"],
+        "ms": lookup_res["rect_cutoff"]["ms"],
+        "plain_ms": lookup_res["rect_cutoff"]["plain_ms"],
+        "bound_ms": lookup_res["rect_cutoff"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": lookup_res["rect_cutoff"]["library_ms"],
+        "shape": (f"{lookup_res['rect_cutoff']['n']} int32 indices into a "
+                  f"{lookup_res['rect_cutoff']['table_entries']}-entry pyramid "
+                  "(bench_3m rect_cutoff, 1920x1080)"),
+        "library_call": "torch.take of the bf16-rounded f32 table, clamped int64 indices",
+        "per_position": lookup_res["per_position"],
+        "trained_500k_launches": sess500["kernel_launches"]["lookup"],
     }]})
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     out(card_line())

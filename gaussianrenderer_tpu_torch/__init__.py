@@ -11,10 +11,17 @@ where every kernel's plain PyTorch version runs instead.
     cam = gt.Camera(); cam.set_position([0, 0, 6]); cam.update_camera_matrices()
     cfg = gt.RenderConfig(height=600, width=800)
     fb, stats = gt.render_frame(scene, cam.params(cfg.k_sigma), cfg)
+
+    # A session with the saturation cull (frame 1 culls nothing):
+    render = gt.make_renderer(scene, gt.RenderConfig(height=600, width=800,
+                                                     sat_cull=True))
+    fb, stats = render(cam.params(3.0))   # stats.sat_culled, stats.sat_risk
 """
 
 from gaussianrenderer_tpu_torch.config import RenderConfig, parse_color
 from gaussianrenderer_tpu_torch.convert import to_torch_camera, to_torch_scene
+from gaussianrenderer_tpu_torch.ops import satcull
+from gaussianrenderer_tpu_torch.ops.cuda.lookup import table_lookup
 from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
     composite_tiles_packed,
     composite_tiles_packed_plain,
@@ -33,6 +40,7 @@ from gaussianrenderer_tpu_torch.ops.sort import pack_key, sort_packed
 from gaussianrenderer_tpu_torch.render import (
     RenderStats,
     framebuffer_to_image,
+    make_renderer,
     render_frame,
     save_png,
 )
@@ -55,14 +63,17 @@ __all__ = [
     "framebuffer_to_image",
     "load_ply",
     "make_random_scene",
+    "make_renderer",
     "morton_codes",
     "pack_key",
     "parse_color",
     "preprocess_gaussians",
     "render_frame",
+    "satcull",
     "save_png",
     "slice_spacetime",
     "sort_packed",
+    "table_lookup",
     "to_torch_camera",
     "to_torch_scene",
 ]

@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
-SOURCES = ("tile_render2",)
+SOURCES = ("tile_render2", "lookup")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,7 +44,15 @@ _SIGNATURES = {
         "gr_tile_render2": (
             _c_int,
             [_c_void_p, ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p,
-             _c_void_p, _c_void_p] + [_c_int] * 9 + [_c_void_p],
+             _c_void_p, _c_void_p, _c_void_p] + [_c_int] * 9 + [_c_void_p],
+        ),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "lookup": {
+        "gr_table_lookup": (
+            _c_int,
+            [_c_void_p, _c_int, _c_void_p, _c_int, ctypes.c_longlong, _c_void_p,
+             _c_void_p],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

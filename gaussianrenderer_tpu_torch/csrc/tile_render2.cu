@@ -26,6 +26,16 @@
 // and skips lanes outside the tile's range. Making it fast (warp-level lane
 // culling, fewer pixels per lane) is later work.
 //
+// With a sat_idx output (the TPU kernel's with_sat census for the
+// saturation cull) the kernel also records, per 16x16 pixel block of the
+// tile, the last real lane of the first walked chunk after which no
+// in-image pixel of the block has T >= 1e-3 (-1: never). Each thread folds
+// its pixels into a per-block bitmask, a warp reduces it with one
+// __reduce_or_sync and one shared atomicOr, and thread 0 reads the mask
+// after the chunk-end barrier that already exists: no barrier is added.
+// The census is a template flag, so frames without it run the same code
+// as before.
+//
 // Arithmetic that the plain PyTorch version repeats (the fast_exp
 // polynomial, the quadratic) uses round-to-nearest intrinsics so nvcc does
 // not contract it into FMAs: the kernel then differs from the plain version
@@ -45,6 +55,9 @@ constexpr int kConicExpBias = 80;
 // Bytes of dynamic shared memory per chunk lane: 10 floats, the AABB word
 // and the in-range flag.
 constexpr int kSmemPerLane = 12 * 4;
+// Saturation census: 16x16 blocks, at most 32 per tile (one mask word).
+constexpr int kSatBlock = 16;
+constexpr int kMaxSatBlocks = 32;
 
 __device__ __forceinline__ float dec_e6m10(uint32_t e) {
   return __uint_as_float((e + (kConicExpBias << 10)) << 13);
@@ -70,14 +83,19 @@ __device__ __forceinline__ float fast_exp(float x) {
   return __fmul_rn(p, __int_as_float(eb));
 }
 
-template <int PPT>
+template <int PPT, bool SAT>
 __global__ void __launch_bounds__(kMaxThreads)
 tile_kernel(const uint32_t* __restrict__ feats, long long C,
             const int* __restrict__ tile_start, const int* __restrict__ tile_count,
             const float* __restrict__ depth_row, float* __restrict__ out,
-            int* __restrict__ chunks_walked, int tiles_x, int tile_w, int tile_h,
-            int width, int height, int K, int out_alpha, int out_depth) {
+            int* __restrict__ chunks_walked, int* __restrict__ sat_idx, int tiles_x,
+            int tile_w, int tile_h, int width, int height, int K, int out_alpha,
+            int out_depth) {
   extern __shared__ float smem[];
+  // Census state (SAT only): the open-block mask of the current and the
+  // next chunk, and each block's recorded lane (thread 0 alone).
+  __shared__ uint32_t s_open[2];
+  __shared__ int s_sat[kMaxSatBlocks];
   float* s_cx = smem;
   float* s_cy = s_cx + K;
   float* s_a = s_cy + K;
@@ -105,6 +123,9 @@ tile_kernel(const uint32_t* __restrict__ feats, long long C,
 
   int pxi[PPT], pyi[PPT];
   float T[PPT], acc_r[PPT], acc_g[PPT], acc_b[PPT], acc_d[PPT];
+  uint32_t blk_bit[PPT];  // SAT: this pixel's block bit, 0 past the image
+  const int sat_bw = tile_w / kSatBlock;
+  const int n_sat = sat_bw * (tile_h / kSatBlock);
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     const int p = threadIdx.x + i * blockDim.x;
@@ -112,6 +133,16 @@ tile_kernel(const uint32_t* __restrict__ feats, long long C,
     pyi[i] = p / tile_w;
     T[i] = 1.0f;
     acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = 0.0f;
+    if constexpr (SAT) {
+      const bool in_img = x0 + pxi[i] < width && y0 + pyi[i] < height;
+      blk_bit[i] = in_img ? 1u << ((pyi[i] / kSatBlock) * sat_bw + pxi[i] / kSatBlock) : 0u;
+    }
+  }
+  if constexpr (SAT) {
+    if (threadIdx.x == 0) {
+      s_open[0] = s_open[1] = 0u;
+      for (int b = 0; b < n_sat; ++b) s_sat[b] = -1;
+    }
   }
 
   int walked = 0;
@@ -189,9 +220,34 @@ tile_kernel(const uint32_t* __restrict__ feats, long long C,
     int alive = 0;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) alive |= T[i] >= kTEps;
-    if (!__syncthreads_or(alive)) break;
+    if constexpr (SAT) {
+      uint32_t open = 0u;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i)
+        if (T[i] >= kTEps) open |= blk_bit[i];
+      open = __reduce_or_sync(0xFFFFFFFFu, open);
+      if ((threadIdx.x & 31) == 0 && open != 0u) atomicOr(&s_open[ci & 1], open);
+    }
+    const int any_alive = __syncthreads_or(alive);
+    if constexpr (SAT) {
+      // Every warp's mask for this chunk is in; the next chunk's word is
+      // written only after the next staging barrier, which thread 0 must
+      // reach after clearing it.
+      if (threadIdx.x == 0) {
+        const uint32_t open = s_open[ci & 1];
+        s_open[(ci + 1) & 1] = 0u;
+        const int lane_end = min(base + K, start + count) - 1;
+        for (int b = 0; b < n_sat; ++b)
+          if (s_sat[b] < 0 && !((open >> b) & 1u)) s_sat[b] = lane_end;
+      }
+    }
+    if (!any_alive) break;
   }
   if (chunks_walked != nullptr && threadIdx.x == 0) chunks_walked[tile] = walked;
+  if constexpr (SAT) {
+    if (threadIdx.x == 0)
+      for (int b = 0; b < n_sat; ++b) sat_idx[static_cast<long long>(tile) * n_sat + b] = s_sat[b];
+  }
 
   const long long plane = static_cast<long long>(height) * width;
 #pragma unroll
@@ -211,12 +267,17 @@ tile_kernel(const uint32_t* __restrict__ feats, long long C,
 template <int PPT>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const uint32_t* feats, long long C, const int* ts, const int* tc,
-                   const float* depth_row, float* out, int* chunks_walked, int tiles_x,
-                   int tile_w, int tile_h, int width, int height, int K, int out_alpha,
-                   int out_depth) {
-  tile_kernel<PPT><<<grid, threads, smem, stream>>>(
-      feats, C, ts, tc, depth_row, out, chunks_walked, tiles_x, tile_w, tile_h, width,
-      height, K, out_alpha, out_depth);
+                   const float* depth_row, float* out, int* chunks_walked, int* sat_idx,
+                   int tiles_x, int tile_w, int tile_h, int width, int height, int K,
+                   int out_alpha, int out_depth) {
+  if (sat_idx != nullptr)
+    tile_kernel<PPT, true><<<grid, threads, smem, stream>>>(
+        feats, C, ts, tc, depth_row, out, chunks_walked, sat_idx, tiles_x, tile_w, tile_h,
+        width, height, K, out_alpha, out_depth);
+  else
+    tile_kernel<PPT, false><<<grid, threads, smem, stream>>>(
+        feats, C, ts, tc, depth_row, out, chunks_walked, nullptr, tiles_x, tile_w, tile_h,
+        width, height, K, out_alpha, out_depth);
   return cudaGetLastError();
 }
 
@@ -227,17 +288,22 @@ extern "C" {
 // Composite all tiles. feats is the (5, C) u32 record matrix (row-major),
 // tile_start/tile_count (T,) int32, depth_row (C,) f32 or null, out
 // (3 + out_alpha + out_depth, height, width) f32, chunks_walked (T,) int32
-// or null. Launches on `stream` and returns cudaGetLastError() (0 = ok).
+// or null, sat_idx (T * blocks per tile,) int32 or null (no census).
+// Launches on `stream` and returns cudaGetLastError() (0 = ok).
 int gr_tile_render2(const void* feats, long long C, const void* tile_start,
                     const void* tile_count, const void* depth_row, void* out,
-                    void* chunks_walked, int tiles_x, int tiles_y, int tile_w, int tile_h,
-                    int width, int height, int K, int out_alpha, int out_depth,
-                    void* stream) {
+                    void* chunks_walked, void* sat_idx, int tiles_x, int tiles_y,
+                    int tile_w, int tile_h, int width, int height, int K, int out_alpha,
+                    int out_depth, void* stream) {
   const int P = tile_w * tile_h;
   const int threads = (P % 256 == 0) ? 256 : 128;
   const int ppt = P / threads;
   if (P % threads != 0 || ppt < 1 || ppt > 16 || K < 1 || K > 1024 ||
       (out_depth && depth_row == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sat_idx != nullptr &&
+      (tile_w % kSatBlock != 0 || tile_h % kSatBlock != 0 ||
+       (tile_w / kSatBlock) * (tile_h / kSatBlock) > kMaxSatBlocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(tiles_x * tiles_y);
   const size_t smem = static_cast<size_t>(K) * kSmemPerLane;
@@ -248,10 +314,11 @@ int gr_tile_render2(const void* feats, long long C, const void* tile_start,
   const float* d = static_cast<const float*>(depth_row);
   float* o = static_cast<float*>(out);
   int* cw = static_cast<int*>(chunks_walked);
-#define GR_CASE(N)                                                                 \
-  case N:                                                                          \
-    return static_cast<int>(launch<N>(grid, threads, smem, s, f, C, ts, tc, d, o, cw, \
-                                      tiles_x, tile_w, tile_h, width, height, K,   \
+  int* si = static_cast<int*>(sat_idx);
+#define GR_CASE(N)                                                                  \
+  case N:                                                                           \
+    return static_cast<int>(launch<N>(grid, threads, smem, s, f, C, ts, tc, d, o, cw,  \
+                                      si, tiles_x, tile_w, tile_h, width, height, K, \
                                       out_alpha, out_depth));
   switch (ppt) {
     GR_CASE(1) GR_CASE(2) GR_CASE(3) GR_CASE(4) GR_CASE(5) GR_CASE(6) GR_CASE(7)

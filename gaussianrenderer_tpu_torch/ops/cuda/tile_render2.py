@@ -37,6 +37,8 @@ ALPHA_EPS = 1e-3
 T_EPS = 1e-3
 ALPHA_MAX = 0.99
 PACK_ROWS = 5
+#: Edge of the saturation census blocks (``with_sat``), in pixels.
+SAT_BLOCK = 16
 #: Tiles the plain version vectorizes over at a time.
 TILE_BATCH = 16
 
@@ -99,7 +101,8 @@ def composite_tiles_packed_plain(
     depth_row: Optional[torch.Tensor] = None,
     tiles: Optional[Sequence[int]] = None,
     chunks_walked: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    with_sat: bool = False,
+):
     """The compositor in plain PyTorch, on the tensors' own device.
 
     Returns the (nc, height, width) framebuffer, or with ``tiles`` only
@@ -107,7 +110,9 @@ def composite_tiles_packed_plain(
     the image included). Tiles run ``TILE_BATCH`` at a time, each batch
     vectorized over (tile, pixel, lane) with a loop over chunk index.
     ``chunks_walked`` (T,) int32, when given, receives each computed
-    tile's number of chunks walked.
+    tile's number of chunks walked. ``with_sat`` also returns the
+    per-16×16-block saturation lanes, (len(tiles)·B,) int32 in tile
+    order (see :func:`composite_tiles_packed`).
     """
     dev = packed_feats.device
     k = chunk
@@ -127,6 +132,12 @@ def composite_tiles_packed_plain(
     px = px_i.to(torch.float32)
     py = py_i.to(torch.float32)
     lane_iota = torch.arange(k, device=dev)
+    if with_sat:
+        if tile_w % SAT_BLOCK or tile_h % SAT_BLOCK:
+            raise ValueError(f"with_sat needs {SAT_BLOCK}px-divisible tiles")
+        bw, bh = tile_w // SAT_BLOCK, tile_h // SAT_BLOCK
+        sat_all = torch.full((tile_ids.numel(), bw * bh), -1, dtype=torch.int64,
+                             device=dev)
 
     blocks = torch.zeros((nc, tile_ids.numel(), p), dtype=torch.float32, device=dev)
     for b0 in range(0, tile_ids.numel(), TILE_BATCH):
@@ -140,6 +151,11 @@ def composite_tiles_packed_plain(
         acc = torch.zeros((nb, p, nc - int(out_alpha)), dtype=torch.float32, device=dev)
         active = num_chunks > 0
         walked = torch.zeros(nb, dtype=torch.int64, device=dev)
+        if with_sat:
+            in_img = (
+                ((tb % tiles_x) * tile_w)[:, None] + (pix % tile_w)[None, :] < width
+            ) & (((tb // tiles_x) * tile_h)[:, None] + (pix // tile_w)[None, :] < height)
+            sat = sat_all[b0:b0 + nb]
         ci = 0
         while bool(active.any()):
             slot = aligned[:, None] + ci * k + lane_iota[None, :]  # (nb, K)
@@ -178,6 +194,16 @@ def composite_tiles_packed_plain(
                 dim=2,
             )
             trans = torch.where(active[:, None], t_all[:, :, k], trans)
+            if with_sat:
+                # A walked block whose in-image pixels all have T < 1e-3
+                # (a block with none counts as saturated) records the
+                # chunk's last real lane, once.
+                open_px = in_img & (trans >= T_EPS)
+                blk_open = open_px.reshape(nb, bh, SAT_BLOCK, bw, SAT_BLOCK)
+                blk_open = blk_open.any(4).any(2).reshape(nb, bh * bw)
+                lane_end = torch.minimum(aligned + (ci + 1) * k, start + count) - 1
+                rec = active[:, None] & ~blk_open & (sat < 0)
+                sat.copy_(torch.where(rec, lane_end[:, None], sat))
             walked = walked + active.to(torch.int64)
             ci += 1
             active = active & (ci < num_chunks) & (trans.amax(1) >= T_EPS)
@@ -191,11 +217,13 @@ def composite_tiles_packed_plain(
         blocks[:, b0:b0 + nb] = torch.stack(rows, 0)
 
     blocks = blocks.reshape(nc, tile_ids.numel(), tile_h, tile_w)
-    if not all_tiles:
-        return blocks
-    fb = blocks.reshape(nc, tiles_y, tiles_x, tile_h, tile_w)
-    fb = fb.permute(0, 1, 3, 2, 4).reshape(nc, tiles_y * tile_h, tiles_x * tile_w)
-    return fb[:, :height, :width].contiguous()
+    if all_tiles:
+        fb = blocks.reshape(nc, tiles_y, tiles_x, tile_h, tile_w)
+        fb = fb.permute(0, 1, 3, 2, 4).reshape(nc, tiles_y * tile_h, tiles_x * tile_w)
+        blocks = fb[:, :height, :width].contiguous()
+    if with_sat:
+        return blocks, sat_all.reshape(-1).to(torch.int32)
+    return blocks
 
 
 def tile_blocks(
@@ -229,7 +257,8 @@ def composite_tiles_packed(
     out_alpha: bool = False,
     depth_row: Optional[torch.Tensor] = None,
     chunks_walked: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    with_sat: bool = False,
+):
     """Composite all tiles from packed records; returns (3, H, W) f32 plus
     the optional rows [alpha, depth] in that order.
 
@@ -239,13 +268,23 @@ def composite_tiles_packed(
     expected-depth row Σ w·d. ``chunks_walked`` is an optional (T,) int32
     output of chunks each tile walked before its early exit.
 
+    ``with_sat=True`` returns ``(fb, sat_idx)``: ``sat_idx`` is (T·B,)
+    int32, B = (tile_w/16)·(tile_h/16) blocks per tile in (by, bx)
+    row-major order. After each walked chunk, a block that has not yet
+    recorded and has no in-image pixel with T ≥ 1e-3 records the chunk's
+    last real lane, min(aligned + (i+1)·chunk, start + count) − 1; −1
+    means never. As in the TPU kernel, a block with no in-image pixel
+    records at its tile's first walked chunk, and a tile with no lanes
+    walks one chunk when its start is not chunk-aligned (its off-image
+    blocks then record start − 1), none otherwise.
+
     CUDA tensors launch the kernel (counted in ``launches``); CPU tensors
     run :func:`composite_tiles_packed_plain`.
     """
     kw = dict(
         tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
         width=width, height=height, chunk=chunk, out_alpha=out_alpha,
-        depth_row=depth_row, chunks_walked=chunks_walked,
+        depth_row=depth_row, chunks_walked=chunks_walked, with_sat=with_sat,
     )
     dev = packed_feats.device
     if dev.type == "cpu":
@@ -273,6 +312,8 @@ def composite_tiles_packed(
         (1 <= chunk <= 1024, "chunk must be in [1, 1024]"),
         (tiles_x * tile_w >= width and tiles_y * tile_h >= height,
          "the tile grid must cover the image"),
+        (not with_sat or (tile_w % SAT_BLOCK == 0 and tile_h % SAT_BLOCK == 0),
+         f"with_sat needs {SAT_BLOCK}px-divisible tiles"),
     ]
     for ok, msg in checks:
         if not ok:
@@ -288,12 +329,17 @@ def composite_tiles_packed(
     lib = _build.load("tile_render2")
     nc = 3 + int(out_alpha) + int(depth_row is not None)
     out = torch.empty((nc, height, width), dtype=torch.float32, device=dev)
+    sat_idx = None
+    if with_sat:
+        n_blocks = (tile_w // SAT_BLOCK) * (tile_h // SAT_BLOCK)
+        sat_idx = torch.empty((num_tiles * n_blocks,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gr_tile_render2(
             packed_feats.data_ptr(), c, tile_start.data_ptr(), tile_count.data_ptr(),
             None if depth_row is None else depth_row.data_ptr(), out.data_ptr(),
             None if chunks_walked is None else chunks_walked.data_ptr(),
+            None if sat_idx is None else sat_idx.data_ptr(),
             tiles_x, tiles_y, tile_w, tile_h, width, height, chunk,
             int(out_alpha), int(depth_row is not None), stream,
         )
@@ -303,7 +349,7 @@ def composite_tiles_packed(
             f"{lib.gr_cuda_error_string(rc).decode()} (cudaError {rc})"
         )
     composite_tiles_packed.launches += 1
-    return out
+    return (out, sat_idx) if with_sat else out
 
 
 #: Kernel launches made through ``composite_tiles_packed`` in this process.

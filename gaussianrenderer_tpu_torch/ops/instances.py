@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from gaussianrenderer_tpu_torch.ops.cuda.lookup import table_lookup
 from gaussianrenderer_tpu_torch.ops.projection import (
     ALPHA_EPS,
     ProjectedGaussians,
@@ -312,6 +313,7 @@ def build_packed_instances(
     far=100.0,
     want_depth: bool = False,
     depth_bits: Optional[int] = None,
+    sat_cut_q: Optional[torch.Tensor] = None,
 ) -> PackedInstances:
     """Emit one packed record per live (splat, tile) pair, sorted by
     ``(tile << depth_bits) | depth_q``, with per-tile start and count.
@@ -319,6 +321,9 @@ def build_packed_instances(
     ``near``/``far`` are the camera clip planes the depth quantization
     spans (float or 0-d tensor). ``want_depth`` also decodes each sorted
     lane's camera-space depth from the key, for the depth output row.
+    ``sat_cut_q`` ((num_tiles,) f32, ``satcull.tile_cutoff_q``) turns on
+    the per-position saturation cull: a (splat, tile) pair whose
+    quantized depth exceeds its tile's cutoff is dead like a dead tile.
     """
     device = proj.depth.device
     num_tiles = tiles_x * tiles_y
@@ -367,6 +372,15 @@ def build_packed_instances(
         ab[:, 0].to(f32), ab[:, 1].to(f32), ab[:, 2].to(f32), ab[:, 3].to(f32),
         tile_w, tile_h,
     )
+    if sat_cut_q is not None:
+        # Per-position saturation cull, folded into the dead mask before
+        # the histogram (the JAX package's live scan counts these
+        # positions dead too). depth_q of a valid splat is the unmasked
+        # quantized depth the JAX emitter compares. The int64 tile ids go
+        # to the lookup kernel as they are: it reads either width.
+        cut = table_lookup(sat_cut_q, tx + ty * tiles_x,
+                           r=max(-(-sat_cut_q.shape[0] // 128), 1), q=128)
+        dead = dead | (depth_q[splat].to(f32) > cut)
     live = ~dead
 
     # Effective-lane histogram (live tiles for rects ≤ ENUM_AREA when the
@@ -415,9 +429,16 @@ def build_packed_instances(
 
     depth_f32 = None
     if want_depth:
-        depth_f32 = near_t + (key_sorted & ((1 << depth_bits) - 1)).to(f32) * (
-            span / dmax
-        )
+        # The sat census turns these depths into cutoffs that must match
+        # the JAX package's bit for bit, so this follows its jitted decode:
+        # XLA divides by the constant dmax as a multiply by its f32
+        # reciprocal, and contracts near + q·step into a fused
+        # multiply-add. In float64 the product is exact (24-bit q, 24-bit
+        # step) and so is the sum for any clip range with far/near below
+        # 2^29, so one rounding to f32 gives the fused result.
+        q = (key_sorted & ((1 << depth_bits) - 1)).to(torch.float64)
+        step = span * (1.0 / dmax)  # the f32 reciprocal, as a scalar operand
+        depth_f32 = (near_t.to(torch.float64) + q * step.to(torch.float64)).to(f32)
     return PackedInstances(
         packed_feats=packed.contiguous(),
         tile_start=start.to(torch.int32),

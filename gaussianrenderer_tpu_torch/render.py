@@ -1,6 +1,8 @@
-"""One rendered frame on the packed path (PyTorch port of ``render.py``).
+"""Rendered frames on the packed path (PyTorch port of ``render.py``).
 
     framebuffer, stats = render_frame(scene, camera_params, cfg)
+    render = make_renderer(scene, cfg)           # a session
+    framebuffer, stats = render(camera_params)   # once per frame
 
 Pipeline, each stage on the scene's device:
 
@@ -13,6 +15,11 @@ Pipeline, each stage on the scene's device:
    PyTorch version for CPU tensors (ops/cuda/tile_render2.py);
 4. ``_finish_fb`` — background composite and channel selection.
 
+With ``cfg.sat_cull`` and a ``sat_state`` (the previous frame's cutoff
+image), the saturation cull (ops/satcull.py) drops splats and
+(splat, tile) pairs behind last frame's saturated blocks before
+emission, and the compositor's census gives this frame's cutoffs.
+
 The framebuffer is planar (3, H, W) float32 with row 0 at NDC y = −1.
 """
 
@@ -20,12 +27,13 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from gaussianrenderer_tpu_torch.config import RenderConfig
+from gaussianrenderer_tpu_torch.ops import satcull
 from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import composite_tiles_packed
 from gaussianrenderer_tpu_torch.ops.instances import build_packed_instances
 from gaussianrenderer_tpu_torch.ops.projection import (
@@ -49,6 +57,13 @@ class RenderStats(NamedTuple):
     area_hist: Optional[torch.Tensor] = None
     #: () bool — a tile-local center saturated the fixed-point encode.
     center_clipped: Optional[torch.Tensor] = None
+    #: () int64 (sat_cull frames only) — splats dropped by the saturation
+    #: cull this frame.
+    sat_culled: Optional[torch.Tensor] = None
+    #: () int64 (sat_cull frames only) — blocks that were saturated last
+    #: frame (culling active) but did not saturate this frame: the
+    #: disocclusion signal. They publish SAT_NONE for the next frame.
+    sat_risk: Optional[torch.Tensor] = None
 
 
 def _check_supported(cfg: RenderConfig) -> None:
@@ -58,8 +73,6 @@ def _check_supported(cfg: RenderConfig) -> None:
             f"tile grid is ported so far (got compositor={cfg.compositor!r}, "
             f"tiles {cfg.tile_w}x{cfg.tile_h})"
         )
-    if cfg.sat_cull:
-        raise NotImplementedError("render_frame: sat_cull is not ported yet")
 
 
 def render_frame(
@@ -67,7 +80,8 @@ def render_frame(
     cam: CameraParams,
     cfg: RenderConfig,
     time_value: Optional[float] = None,
-) -> Tuple[torch.Tensor, RenderStats]:
+    sat_state: Optional[torch.Tensor] = None,
+):
     """Render one frame on the scene's device; returns ``(fb, stats)``
     with ``fb`` (3[+alpha][+depth], H, W) float32.
 
@@ -75,6 +89,12 @@ def render_frame(
     static scenes). ``cfg.tiers`` and ``cfg.tier_boost`` size the JAX
     package's static instance lanes; emission here has no static size, so
     they do not apply.
+
+    With ``cfg.sat_cull`` and ``sat_state`` (the previous frame's (sy, sx)
+    cutoff image; ``satcull.initial_cutoff`` for the first frame) the
+    frame is culled and the return is ``(fb, stats, new_sat_state)``;
+    without ``sat_state`` the frame renders unculled and returns two
+    values. ``make_renderer`` threads the state.
     """
     _check_supported(cfg)
     scene, extra_opacity = slice_spacetime(scene, time_value)
@@ -94,6 +114,10 @@ def render_frame(
         ewa_compensate=cfg.ewa_compensate,
     )
     want_alpha = cfg.output_alpha or cfg.background is not None
+    with_sat = cfg.sat_cull and sat_state is not None
+    sat_culled = sat_cut_q = None
+    if with_sat:
+        proj, sat_culled, sat_cut_q = _sat_cull(proj, cam, cfg, sat_state)
     inst = build_packed_instances(
         proj,
         tiles_x=cfg.tiles_x,
@@ -102,7 +126,10 @@ def render_frame(
         tile_h=cfg.tile_h,
         near=cam.near,
         far=cam.far,
-        want_depth=cfg.output_depth,
+        # The census decodes lane depth; the framebuffer gets a depth row
+        # only when asked for.
+        want_depth=cfg.output_depth or with_sat,
+        sat_cut_q=sat_cut_q,
     )
     fb = composite_tiles_packed(
         inst.packed_feats,
@@ -116,16 +143,123 @@ def render_frame(
         height=cfg.height,
         chunk=cfg.packed_chunk,
         out_alpha=want_alpha,
-        depth_row=inst.depth_f32,
+        depth_row=inst.depth_f32 if cfg.output_depth else None,
+        with_sat=with_sat,
     )
+    sat_risk = new_cutoff = None
+    if with_sat:
+        fb, sat_idx = fb
+        new_cutoff = satcull.cutoff_from_sat(
+            sat_idx,
+            inst.depth_f32,
+            tiles_x=cfg.tiles_x,
+            tiles_y=cfg.tiles_y,
+            tile_w=cfg.tile_w,
+            tile_h=cfg.tile_h,
+        )
+        # Blocks that were culling but failed to re-saturate publish
+        # SAT_NONE in new_cutoff, so the next frame heals them.
+        sat_risk = (
+            (sat_state < satcull.SAT_NONE) & (new_cutoff >= satcull.SAT_NONE)
+        ).sum()
     stats = RenderStats(
         num_culled=proj.valid.sum(),
         num_instances=inst.total_instances,
         overflow=inst.overflow,
         area_hist=inst.area_hist,
         center_clipped=inst.center_clipped,
+        sat_culled=sat_culled,
+        sat_risk=sat_risk,
     )
+    if with_sat:
+        return _finish_fb(fb, cfg), stats, new_cutoff
     return _finish_fb(fb, cfg), stats
+
+
+def _sat_cull(proj, cam: CameraParams, cfg: RenderConfig, sat_state: torch.Tensor):
+    """The saturation cull before emission: returns the projection with
+    culled splats made invalid, the culled count, and the per-tile
+    cutoff table of the per-position cull."""
+    f32 = torch.float32
+    sy, sx = satcull.sat_grid(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h)
+    depth_bits = min(32 - max(int(cfg.num_tiles).bit_length(), 1), 24)
+    # One depth-quantization step of the frame-sort key: (far − near) /
+    # (2^depth_bits − 1) in f32, which the JAX package's jitted frame
+    # computes as a multiply by the f32 reciprocal (XLA's rewrite of a
+    # division by a constant), so the per-tile cutoff table matches. The
+    # Python float enters the f32 multiply as that f32 reciprocal.
+    dev = sat_state.device
+    far = torch.as_tensor(cam.far, dtype=f32, device=dev)
+    near = torch.as_tensor(cam.near, dtype=f32, device=dev)
+    step = (far - near) * (1.0 / ((1 << depth_bits) - 1))
+    sat_eff = satcull.dilate_cutoff(sat_state, cfg.sat_dilate)
+    culled = satcull.cull_mask(
+        proj.valid,
+        proj.depth,
+        proj.aabb_px,
+        satcull.build_pyramid(sat_eff),
+        sx=sx,
+        sy=sy,
+        margin=cfg.sat_margin,
+        depth_step=step,
+    )
+    sat_cut_q = satcull.tile_cutoff_q(
+        sat_eff,
+        tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y,
+        tile_w=cfg.tile_w,
+        tile_h=cfg.tile_h,
+        near=cam.near,
+        depth_step=step,
+        margin=cfg.sat_margin,
+    )
+    return proj._replace(valid=proj.valid & ~culled), culled.sum(), sat_cut_q
+
+
+def make_renderer(
+    scene: GaussianScene,
+    cfg: RenderConfig,
+    auto_tier: bool = False,
+    overflow_check_every: int = 16,
+    scene_path: Optional[str] = None,
+):
+    """A render session: returns ``render(cam_params, time_value=None) ->
+    (fb, stats)`` with the scene closed over.
+
+    With ``cfg.sat_cull`` the session threads the saturation-cull state
+    from ``satcull.initial_cutoff`` (frame 1 culls nothing) through each
+    frame's new cutoff image. ``render.current_cfg()`` returns the
+    session's config.
+
+    The JAX session also calibrates a static instance-tier ladder
+    (``auto_tier``: ``calibrate_tiers``, a calibration sidecar next to
+    ``scene_path``, the ladder-driven ``auto_packed_chunk``) and renders
+    from a transposed ``PreparedScene``. This port emits by count → scan
+    with no static capacity, so it never overflows and has no ladder to
+    calibrate: ``auto_tier``, ``overflow_check_every`` and ``scene_path``
+    are accepted for the same call signature and change nothing, and the
+    scene is used as it is. Stats stay device tensors; the session reads
+    nothing back per frame.
+    """
+    del auto_tier, overflow_check_every, scene_path
+    state = {"cfg": cfg, "sat": None}
+
+    def render(cam: CameraParams, time_value=None):
+        cfg_now = state["cfg"]
+        if not cfg_now.sat_cull:
+            return render_frame(scene, cam, cfg_now, time_value)
+        if state["sat"] is None:
+            state["sat"] = satcull.initial_cutoff(
+                cfg_now.tiles_x, cfg_now.tiles_y, cfg_now.tile_w, cfg_now.tile_h,
+                device=scene.positions.device,
+            )
+        fb, stats, state["sat"] = render_frame(
+            scene, cam, cfg_now, time_value, sat_state=state["sat"]
+        )
+        return fb, stats
+
+    render.current_cfg = lambda: state["cfg"]
+    return render
 
 
 def _finish_fb(fb: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:

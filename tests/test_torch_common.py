@@ -138,6 +138,13 @@ def test_cuda_entry_points_raise_without_a_card():
         gt.Camera().params(3.0)
     with pytest.raises(RuntimeError, match="cuda"):
         gt.load_ply(os.path.join(REPO, "tests", "fixtures", "trained.ply"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        gt.satcull.initial_cutoff(4, 3, 32, 32)
+    # The lookup wrapper runs its plain version only for CPU tensors: any
+    # other device launches the kernel or raises.
+    with pytest.raises(ValueError, match="device"):
+        gt.table_lookup(torch.zeros(8, device="meta"),
+                        torch.zeros(4, dtype=torch.int32, device="meta"))
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

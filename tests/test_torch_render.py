@@ -78,8 +78,7 @@ def test_frame_matches_jax_and_oracle(case):
 def test_unsupported_options_raise():
     ps = gt.make_random_scene(10, seed=0, device="cpu")
     _, pcam, _ = both_cameras(160, 128)
-    for kw in (dict(compositor="xla"), dict(sat_cull=True),
-               dict(num_tile_x=3, num_tile_y=3)):
+    for kw in (dict(compositor="xla"), dict(num_tile_x=3, num_tile_y=3)):
         with pytest.raises(NotImplementedError):
             gt.render_frame(ps, pcam, gt.RenderConfig(height=128, width=160, **kw))
 
