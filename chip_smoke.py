@@ -42,7 +42,27 @@ its elapsed seconds:
                       frame; an orbit of 10 frames at 3°/frame stays
                       ≥ 40 dB against unculled renders (5°/frame printed,
                       not gated); frame times, stage times and each
-                      kernel's launches per frame.
+                      kernel's launches per frame;
+8. train-kernel-vs-plain
+                    — both training kernels against their plain versions
+                      on every tile of the first training step's frame
+                      below and of a heavy-overdraw case (16k large splats
+                      at 256×256): forward rgb and T within 1e-4, the
+                      gradient per column within 1e-4 of the plain
+                      version's largest, columns 9–15 and the lanes past
+                      the last tile exactly 0; kernel, plain and bound ms;
+9. train-500k       — the training main path: ``make_train_step`` with
+                      ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
+                      data/trained_500k.ply at 640×480 (the fitting
+                      config), 30 steps over 4 orbit views whose targets
+                      are the file's own renders, from a seeded
+                      perturbation: loss finite and falling, no NaN
+                      gradient, one launch of each kernel per step; step
+                      ms, CUDA-event stage ms, PSNR before and after, and
+                      a torch.profiler pass over 3 steps;
+10. train-bench-shape
+                    — step ms at tools/train_bench.py's shape (500k
+                      random splats, 800×800, Adam 1e-2, MSE).
 
 Then one JSON line of per-kernel numbers, the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -117,6 +137,32 @@ BENCH_ORBIT_DEG = 5.0
 #: 4K frame's saturation grid (3840×2160 in 16-px blocks): its pyramid has
 #: more than 16,384 entries.
 GRID_4K = (135, 240)
+
+#: The train kernels against their plain versions on the card: forward
+#: rows (rgb, T) max |Δ|, and the gradient per column relative to the
+#: plain version's largest (float summation order only: both versions
+#: compute alpha with the same rounding and the same exp).
+TRAIN_FWD_MAX_ABS = 1e-4
+TRAIN_GRAD_REL = 1e-4
+#: The training main path: steps, views and the view spacing on the orbit.
+TRAIN_STEPS = 30
+TRAIN_POSES = 4
+TRAIN_POSE_DEG = 8.0
+TRAIN_H, TRAIN_W = 480, 640
+#: fp32 operations per (in-image pixel, walked lane) pair of the train
+#: kernels that the function needs. Nothing once the pixel has stopped
+#: (t_before < 1e-3: gates are a prefix). While it is live: outside the
+#: lane's AABB the 4-compare box test; inside with alpha below 1e-3 the
+#: alpha alone, box 4, offsets 2, quadratic 7, clip 2, exponent argument
+#: 1, expf 8, opacity 1, clamp 1, alpha test 1 (27); inside and weighted
+#: the forward adds t_before 1, gate 1, weight 1, colour accumulation 6,
+#: carry 2 (38), and the backward is the alpha and carry recompute
+#: without the colours (32), g·c 5, y 1, suffix 2, ∂alpha 5, ∂op 2, ∂md²
+#: 3, the five geometry terms 17, colour terms 6 (73).
+OPS_TRAIN_BOX_TEST = 4
+OPS_TRAIN_ALPHA = 27
+OPS_TRAIN_FWD = 38
+OPS_TRAIN_BWD = 73
 
 
 def log(*args):
@@ -885,6 +931,439 @@ def phase_session(torch, gt, label, setup, card, frames=10):
     return res
 
 
+# ------------------------------------------------------------------ training
+def train_500k_config(gt):
+    """The configuration data/trained_500k.ply was fitted with
+    (train_scene.jsonl): 640×480, auto 32×32 tiles (20×15), chunk 128,
+    SH degree 1, the training compositor."""
+    return gt.RenderConfig(height=TRAIN_H, width=TRAIN_W, sh_degree=1, compositor="diff")
+
+
+def train_poses(gt, cfg):
+    """TRAIN_POSES views on the fitting orbit (radius 5.5, fov 60°,
+    tools/make_trained_scene.py) at height 1.7, from (3.9, 1.7, 3.9)
+    in TRAIN_POSE_DEG steps."""
+    cams = []
+    for i in range(TRAIN_POSES):
+        ang = math.radians(45.0 + TRAIN_POSE_DEG * i)
+        pos = (5.5 * math.sin(ang), 1.7, 5.5 * math.cos(ang))
+        cam = look_camera(gt, pos, cfg.width / cfg.height, fov=60.0)
+        cams.append(cam.params(cfg.k_sigma, device=DEVICE))
+    return cams
+
+
+def perturbed(torch, gt, truth):
+    """The fitted params with seeded position noise (σ 0.01) and
+    opacity shrunk (logit − 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    noise = torch.randn(truth.positions.shape, generator=gen, device=DEVICE)
+    return truth._replace(positions=truth.positions + 0.01 * noise,
+                          raw_opacity=truth.raw_opacity - 1.0)
+
+
+def train_inputs(gt, params, camp, cfg):
+    """The training compositor's inputs for one view: (sorted features,
+    assignment), as render_for_training builds them."""
+    from gaussianrenderer_tpu_torch.ops.compositing import gather_sorted_features_seg
+
+    proj = gt.preprocess_gaussians(
+        params.to_scene(), camp, width=cfg.width, height=cfg.height,
+        tile_w=cfg.tile_w, tile_h=cfg.tile_h, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+        sh_degree=cfg.sh_degree, quantize_centers=False,
+    )
+    asg = gt.build_sorted_instances(proj, tiles_x=cfg.tiles_x, num_tiles=cfg.num_tiles,
+                                    near=camp.near, far=camp.far)
+    sf = gather_sorted_features_seg(gt.build_features(proj), asg, cfg.chunk_size)
+    return sf, asg
+
+
+def heavy_overdraw_inputs(gt):
+    """tests/test_train_kernel.py's heavy-overdraw case at 4× the splats
+    and 256×256 (tiles of over 20 chunks, saturation, the 0.99 clamp)."""
+    import torch
+
+    scene = gt.make_random_scene(16000, seed=11, extent=0.8, scale_range=(0.2, 0.6),
+                                 device=DEVICE)
+    scene = scene._replace(opacity=torch.clamp(scene.opacity * 4.0, 0.0, 1.0))
+    cfg = gt.RenderConfig(height=256, width=256, compositor="diff")
+    camp = look_camera(gt, (0.0, 0.0, 2.5), 1.0, fov=70.0).params(3.0, device=DEVICE)
+    sf, asg = train_inputs(gt, gt.SceneParams.from_scene(scene), camp, cfg)
+    check(int(asg.tile_count.max()) > 20 * cfg.chunk_size,
+          "heavy-overdraw case: no tile has over 20 chunks")
+    return sf, asg, cfg
+
+
+def train_kw(cfg):
+    return dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
+                tile_h=cfg.tile_h, chunk=cfg.chunk_size)
+
+
+def train_pairs(torch, sf, asg, cfg, stats, chk, off):
+    """One frame's (in-image pixel, walked lane) pairs by the work the
+    function needs, recomputed from the plain forward's stats and
+    checkpoints: lanes inside their tile's range, chunks before the tile's
+    exit (i_end), pixels inside the image. A pair is live while its
+    pixel's t_before ≥ 1e-3. Returns a dict: ``walked`` (all such pairs),
+    ``in_aabb`` (of those, inside the lane's AABB), and the live pairs
+    ``live_outside`` (outside the AABB), ``live_faint`` (inside, alpha
+    below 1e-3) and ``live_weighted`` (inside and weighted)."""
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    k = cfg.chunk_size
+    i64 = torch.int64
+    dev = sf.device
+    p = cfg.tile_w * cfg.tile_h
+    i_end_all = stats.reshape(tt.STATS_ROWS, cfg.num_tiles, p)[4, :, 0].to(i64)
+    lane = torch.arange(k, device=dev)
+    keys = ("walked", "in_aabb", "live_outside", "live_faint", "live_weighted")
+    sums = torch.zeros(len(keys), dtype=i64, device=dev)
+    for b0 in range(0, cfg.num_tiles, tt.TILE_BATCH):
+        tb = torch.arange(b0, min(b0 + tt.TILE_BATCH, cfg.num_tiles), device=dev)
+        start = asg.tile_start[tb].to(i64)
+        end = start + asg.tile_count[tb].to(i64)
+        aligned = (start // k) * k
+        off_b = off[tb].to(i64)
+        i_end = i_end_all[tb]
+        px, py = tt._pixels(tb, cfg.tiles_x, cfg.tile_w, cfg.tile_h)
+        in_image = (px < cfg.width) & (py < cfg.height)  # (nb, P, 1)
+        for ci in range(int(i_end.max())):
+            active = ci < i_end
+            t_carry = chk[torch.where(active, off_b + ci, 0)]
+            slot = aligned[:, None] + ci * k + lane[None, :]
+            valid = (slot >= start[:, None]) & (slot < end[:, None]) & active[:, None]
+            alpha, aux = tt._chunk_terms(sf, slot, valid, px, py)
+            _, _, gate, _ = tt._chunk_recompute(alpha, t_carry)
+            pair = in_image & valid[:, None, :]
+            live = pair & gate
+            inside = aux["inside"]
+            sums += torch.stack([
+                pair.sum(), (pair & inside).sum(), (live & ~inside).sum(),
+                (live & inside & ~aux["mask"]).sum(), (live & aux["mask"]).sum(),
+            ])
+    return dict(zip(keys, (int(v) for v in sums.tolist())))
+
+
+def train_bound_ms(sf, cfg, pairs, n_chk, backward):
+    """Least time of one train-kernel launch on an H100: the larger of
+    the operations this frame's data needs over the fp32 peak and the
+    bytes the function must move over the HBM peak.
+
+    Operations: each live pair of :func:`train_pairs` at its
+    ``OPS_TRAIN_*`` cost (weighted pairs ``OPS_TRAIN_FWD`` forward or
+    ``OPS_TRAIN_BWD`` backward); pairs past their pixel's stop and pixels
+    past the image edge cost nothing. Bytes: the (C+K, 16) features,
+    ranges and checkpoint offsets in, stats and checkpoints out (forward);
+    features, cotangent rows, stats, checkpoints and ranges in, the
+    gradient rows out (backward). Returns (ms, "operations" | "bytes")."""
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_train import STATS_ROWS
+
+    p = cfg.tile_w * cfg.tile_h
+    ops = (pairs["live_weighted"] * (OPS_TRAIN_BWD if backward else OPS_TRAIN_FWD)
+           + pairs["live_faint"] * OPS_TRAIN_ALPHA
+           + pairs["live_outside"] * OPS_TRAIN_BOX_TEST)
+    tp = cfg.num_tiles * p
+    n_bytes = sf.numel() * 4 + 12 * cfg.num_tiles + 4 * n_chk * p + 4 * STATS_ROWS * tp
+    if backward:
+        n_bytes += 4 * STATS_ROWS * tp + sf.numel() * 4
+    ops_s, bytes_s = ops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def walked_rows(torch, off, i_end_a, i_end_b):
+    """Checkpoint rows that both forwards wrote: each tile's first
+    min(i_end) rows from its offset."""
+    n = torch.minimum(i_end_a, i_end_b).to(torch.int64)
+    first = torch.repeat_interleave(off.to(torch.int64), n)
+    rank = torch.arange(first.numel(), device=n.device) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    return first + rank
+
+
+def grad_rel(d, ref):
+    """Per gradient column: max |d − ref| over max |ref|."""
+    rel = {}
+    for col, key in enumerate(("cx", "cy", "A", "B", "C", "op", "r", "g", "b")):
+        scale = float(ref[:, col].abs().max())
+        rel[key] = float((d[:, col] - ref[:, col]).abs().max()) / max(scale, 1e-30)
+    return rel
+
+
+def compare_train(torch, name, sf, asg, cfg):
+    """Both train kernels against their plain versions on one frame's
+    inputs (every tile). Forward: the rgb and T rows and the checkpoints
+    of the chunks both walked (max |Δ|). Backward, per gradient column
+    (max |Δ| / max |plain|), from one cotangent: the backward kernel
+    against the plain backward on the kernel forward's stats and
+    checkpoints, and the whole kernel chain against the whole plain chain
+    (the plain backward on the plain forward's own). Columns 9–15 and the
+    lanes past the last tile exactly 0."""
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    kw = train_kw(cfg)
+    off, n_chk = tt.chunk_offsets(asg.tile_start, asg.tile_count, cfg.chunk_size)
+    args = (sf, asg.tile_start, asg.tile_count, off)
+    stats_k, chk_k = tt.train_forward(*args, n_chk, **kw)
+    stats_p, chk_p = tt.train_forward_plain(*args, n_chk, **kw)
+    fwd_err = float((stats_k[:4] - stats_p[:4]).abs().max())
+    i_end_k = stats_k[4].reshape(cfg.num_tiles, -1)[:, 0]
+    i_end_p = stats_p[4].reshape(cfg.num_tiles, -1)[:, 0]
+    tiles_exit_differs = int((stats_k[4] != stats_p[4]).reshape(cfg.num_tiles, -1)
+                             .any(1).sum())
+    rows = walked_rows(torch, off, i_end_k, i_end_p)
+    chk_err = float((chk_k[rows] - chk_p[rows]).abs().max()) if rows.numel() else 0.0
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    gout = torch.randn(stats_k.shape, generator=gen, device=DEVICE)
+    gout[4:] = 0.0
+    d_k = tt.train_backward(*args, gout, stats_k, chk_k, **kw)
+    d_p = tt.train_backward_plain(*args, gout, stats_k, chk_k, **kw)
+    d_chain = tt.train_backward_plain(*args, gout, stats_p, chk_p, **kw)
+    rel = grad_rel(d_k, d_p)
+    chain_rel = grad_rel(d_k, d_chain)
+    bwd_abs = float((d_k[:, :9] - d_p[:, :9]).abs().max())
+    end = int(asg.tile_start[-1] + asg.tile_count[-1])
+    rest_zero = float(d_k[:, 9:].abs().max()) == 0.0 and float(d_k[end:].abs().max()) == 0.0
+    res = {"case": f"train kernels: {name}", "instances": int(asg.total_instances),
+           "max_tile_count": int(asg.tile_count.max()),
+           "max_chunks_walked": int(i_end_k.max()), "checkpoint_rows": n_chk,
+           "checkpoint_rows_compared": int(rows.numel()),
+           "fwd_max_abs": fwd_err, "checkpoint_max_abs": chk_err,
+           "tiles_exit_differs": tiles_exit_differs,
+           "bwd_max_abs": bwd_abs, "bwd_rel_per_column": rel,
+           "chain_rel_per_column": chain_rel,
+           "rows_9_15_and_pad_zero": rest_zero}
+    out(res)
+    check(math.isfinite(fwd_err) and fwd_err <= TRAIN_FWD_MAX_ABS,
+          f"{name}: forward kernel vs plain max {fwd_err:.3g}")
+    check(math.isfinite(chk_err) and chk_err <= TRAIN_FWD_MAX_ABS,
+          f"{name}: forward kernel's checkpoints vs plain max {chk_err:.3g}")
+    for label, per_col in (("backward kernel", rel), ("kernel chain", chain_rel)):
+        for key, v in per_col.items():
+            check(math.isfinite(v) and v <= TRAIN_GRAD_REL,
+                  f"{name}: {label} vs plain, column {key}: relative {v:.3g}")
+    check(rest_zero, f"{name}: gradient outside columns 0-8 or past the last lane")
+    return (max(fwd_err, chk_err), (bwd_abs, max(max(rel.values()), max(chain_rel.values()))),
+            (stats_k, chk_k, off, n_chk, gout, stats_p, chk_p))
+
+
+def phase_train_kernel_vs_plain(torch, gt, frame):
+    """The train kernels against their plain versions: the train-500k
+    frame's first step (pose 0, perturbed params) and the heavy-overdraw
+    case; then the kernels' and plain versions' times on the former."""
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    sf, asg, cfg = frame
+    fwd_err, bwd_err, (stats, chk, off, n_chk, gout, stats_p, chk_p) = compare_train(
+        torch, f"trained_500k {cfg.width}x{cfg.height}, first step", sf, asg, cfg)
+    heavy = heavy_overdraw_inputs(gt)
+    h_fwd, h_bwd, _ = compare_train(
+        torch, f"heavy overdraw {heavy[2].width}x{heavy[2].height}", *heavy)
+    kw = train_kw(cfg)
+    args = (sf, asg.tile_start, asg.tile_count, off)
+    times = {
+        "fwd_ms": cuda_ms(torch, lambda: tt.train_forward(*args, n_chk, **kw), 10),
+        "bwd_ms": cuda_ms(torch, lambda: tt.train_backward(*args, gout, stats, chk, **kw),
+                          10),
+        "fwd_plain_ms": cuda_ms(torch, lambda: tt.train_forward_plain(*args, n_chk, **kw),
+                                1),
+        "bwd_plain_ms": cuda_ms(torch, lambda: tt.train_backward_plain(
+            *args, gout, stats, chk, **kw), 1),
+    }
+    pairs = train_pairs(torch, sf, asg, cfg, stats_p, chk_p, off)
+    fb_ms, fb_by = train_bound_ms(sf, cfg, pairs, n_chk, False)
+    bb_ms, bb_by = train_bound_ms(sf, cfg, pairs, n_chk, True)
+    res = {"train_kernel_times": {
+        **times, "fwd_bound_ms": fb_ms, "fwd_bound_by": fb_by, "bwd_bound_ms": bb_ms,
+        "bwd_bound_by": bb_by, **{f"pairs_{key}": v for key, v in pairs.items()},
+        "instances": int(asg.total_instances), "checkpoint_rows": n_chk,
+        "fwd_max_abs_err": max(fwd_err, h_fwd), "bwd_max_abs_err": max(bwd_err[0], h_bwd[0]),
+        "bwd_max_rel_err": max(bwd_err[1], h_bwd[1]),
+    }}
+    out(res)
+    return res["train_kernel_times"]
+
+
+def grads_finite(torch, gt, params, camp, target, cfg):
+    leaves = gt.SceneParams(*(None if p is None else p.detach().requires_grad_(True)
+                              for p in params))
+    loss = gt.l1_dssim_loss(leaves, camp, target, cfg)
+    grads = torch.autograd.grad(loss, [p for p in leaves if p is not None])
+    return all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def phase_train(torch, gt, scene, card):
+    """The training main path at full width: make_train_step with the
+    3DGS optimizer and l1_dssim_loss on data/trained_500k.ply at 640×480,
+    TRAIN_STEPS steps cycling TRAIN_POSES views whose targets are the
+    fitted params' own renders, from a seeded perturbation. Counts of
+    both train kernels are set to 0 just before the steps and read just
+    after. Then CUDA-event stage times of one step."""
+    from gaussianrenderer_tpu_torch.ops.compositing import gather_sorted_features_seg
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+    from gaussianrenderer_tpu_torch.train import apply_updates
+
+    cfg = train_500k_config(gt)
+    cams = train_poses(gt, cfg)
+    truth = gt.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        targets = [gt.render_for_training(truth, c, cfg) for c in cams]
+    params0 = perturbed(torch, gt, truth)
+    with torch.no_grad():
+        psnr_before = [psnr_t(gt.render_for_training(params0, c, cfg), t)
+                       for c, t in zip(cams, targets)]
+    check(grads_finite(torch, gt, params0, cams[0], targets[0], cfg),
+          "train-500k: non-finite gradient at the first step")
+    opt = gt.make_3dgs_optimizer()
+    step, _ = gt.make_train_step(cfg, optimizer=opt, loss_fn=gt.l1_dssim_loss)
+    # Warm-up on a copy (the first call of each op pays its setup).
+    step(params0, opt.init(params0), cams[0], targets[0])
+
+    params, state = params0, opt.init(params0)
+    losses, step_ms = [], []
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    for s in range(TRAIN_STEPS):
+        i = s % TRAIN_POSES
+        (params, state, loss), ms = host_ms(
+            torch, lambda: step(params, state, cams[i], targets[i]))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    launches = {"tile_train_fwd": tt.train_forward.launches,
+                "tile_train_bwd": tt.train_backward.launches}
+
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(all(math.isfinite(v) for v in losses), f"train-500k: non-finite loss {losses}")
+    check(last < first, f"train-500k: loss did not fall ({first:.5g} → {last:.5g})")
+    check(launches == {"tile_train_fwd": TRAIN_STEPS, "tile_train_bwd": TRAIN_STEPS},
+          f"train-500k: kernel launches {launches} in {TRAIN_STEPS} steps")
+    # The file holds a few splats with NaN parameters (never valid, zero
+    # gradient): every parameter that was finite must stay finite.
+    check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
+              for p, p0 in zip(params, params0) if p is not None),
+          "train-500k: a finite parameter became non-finite")
+    check(grads_finite(torch, gt, params, cams[0], targets[0], cfg),
+          "train-500k: non-finite gradient after the steps")
+    with torch.no_grad():
+        psnr_after = [psnr_t(gt.render_for_training(params, c, cfg), t)
+                      for c, t in zip(cams, targets)]
+
+    # Stage times of one step at pose 0 from the perturbed params.
+    camp, target = cams[0], targets[0]
+    leaves = gt.SceneParams(*(None if p is None else p.detach().requires_grad_(True)
+                              for p in params0))
+    preprocess = lambda: gt.preprocess_gaussians(  # noqa: E731
+        leaves.to_scene(), camp, width=cfg.width, height=cfg.height,
+        tile_w=cfg.tile_w, tile_h=cfg.tile_h, tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y, sh_degree=cfg.sh_degree, quantize_centers=False)
+    proj = preprocess()
+
+    def tiling_gather():
+        asg = gt.build_sorted_instances(proj, tiles_x=cfg.tiles_x,
+                                        num_tiles=cfg.num_tiles, near=camp.near,
+                                        far=camp.far)
+        return gather_sorted_features_seg(gt.build_features(proj), asg, cfg.chunk_size), asg
+
+    sf, asg = tiling_gather()
+    sfd = sf.detach()
+    kw = train_kw(cfg)
+    off, n_chk = tt.chunk_offsets(asg.tile_start, asg.tile_count, cfg.chunk_size)
+    args = (sfd, asg.tile_start, asg.tile_count, off)
+    stats, chk = tt.train_forward(*args, n_chk, **kw)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    gout = torch.randn(stats.shape, generator=gen, device=DEVICE)
+    gout[4:] = 0.0
+
+    def backward_ms():
+        p = gt.SceneParams(*(None if x is None else x.detach().requires_grad_(True)
+                             for x in params0))
+        loss = gt.l1_dssim_loss(p, camp, target, cfg)
+        live = [x for x in p if x is not None]
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.autograd.grad(loss, live)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    def forward_loss():
+        return gt.l1_dssim_loss(leaves, camp, target, cfg)
+
+    grads = torch.autograd.grad(forward_loss(), [x for x in leaves if x is not None])
+    grads = iter(grads)
+    gtree = gt.SceneParams(*(None if x is None else next(grads) for x in leaves))
+    st0 = opt.init(params0)
+    reps = 5
+    backward_all = statistics.median(backward_ms() for _ in range(reps))
+    bwd_kernel = cuda_ms(torch, lambda: tt.train_backward(*args, gout, stats, chk, **kw),
+                         reps)
+    stages = {
+        "projection": cuda_ms(torch, preprocess, reps),
+        "tiling_gather": cuda_ms(torch, tiling_gather, reps),
+        "forward_kernel": cuda_ms(torch, lambda: tt.train_forward(*args, n_chk, **kw),
+                                  reps),
+        "loss_forward_total": cuda_ms(torch, forward_loss, reps),
+        "backward_total": backward_all,
+        "backward_kernel": bwd_kernel,
+        "backward_rest": backward_all - bwd_kernel,
+        "optimizer": cuda_ms(torch, lambda: apply_updates(
+            params0, opt.update(gtree, st0, params0)[0]), reps),
+    }
+    st_p = opt.init(params0)
+    phase_profile(torch, "trained_500k train step (l1_dssim, 3DGS Adam)",
+                  lambda: step(params0, st_p, camp, target), card,
+                  statistics.median(step_ms))
+    res = {
+        "train": "trained_500k",
+        "gaussians": scene.num_gaussians,
+        "resolution": f"{cfg.width}x{cfg.height}",
+        "tiles": f"{cfg.tiles_x}x{cfg.tiles_y} of {cfg.tile_w}x{cfg.tile_h}",
+        "num_instances_first_step": int(asg.total_instances),
+        "splats_with_nonfinite_params": int(
+            (~torch.isfinite(params0.positions).all(1)).sum()),
+        "steps": TRAIN_STEPS,
+        "loss_first5_mean": first, "loss_last5_mean": last, "losses": losses,
+        "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms_all": step_ms,
+        "stage_ms": stages,
+        "kernel_launches": launches,
+        "kernel_launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "psnr_db_before": psnr_before, "psnr_db_after": psnr_after,
+        "card": card,
+    }
+    out(res)
+    return res
+
+
+def phase_train_bench(torch, gt, card, steps=10, n=500_000, size=800):
+    """tools/train_bench.py's shape: make_random_scene(500k, seed 0,
+    extent 4, scales 0.004–0.03) at 800×800, camera (0, 1, 8), Adam(1e-2),
+    MSE against the scene's own render; host-clock step times."""
+    scene = gt.make_random_scene(n, seed=0, extent=4.0, scale_range=(0.004, 0.03),
+                                 device=DEVICE)
+    cfg = gt.RenderConfig(height=size, width=size, compositor="diff")
+    camp = look_camera(gt, (0.0, 1.0, 8.0), 1.0).params(cfg.k_sigma, device=DEVICE)
+    params = gt.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        target = gt.render_for_training(params, camp, cfg)
+    step, opt = gt.make_train_step(cfg, optimizer=gt.make_optimizer(1e-2))
+    state = opt.init(params)
+    step(params, state, camp, target)
+    times, losses = [], []
+    for _ in range(steps):
+        (params, state, loss), ms = host_ms(torch, lambda: step(params, state, camp, target))
+        times.append(ms)
+        losses.append(float(loss))
+    check(all(math.isfinite(v) for v in losses), f"train-bench-shape: losses {losses}")
+    _, st = gt.render_frame(scene, camp, cfg)
+    res = {"train_bench_shape": f"{n} random splats, {size}x{size}, Adam(1e-2), MSE",
+           "num_instances": int(st.num_instances), "step_ms_median": statistics.median(times),
+           "step_ms_min": min(times), "step_ms_max": max(times), "step_ms_all": times,
+           "card": card}
+    out(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -917,6 +1396,9 @@ def main() -> int:
              "max_registers_per_thread": max(regs) if regs else None})
         for name in _build.SOURCES:
             _build.load(name)
+    # Full-fp32 matrix products (the default, stated): the plain versions'
+    # colour sums must not drop to TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     with Phase("scene-3m", torch):
         big = bench_3m_setup()
@@ -962,6 +1444,26 @@ def main() -> int:
 
     with Phase("session-trained-500k", torch):
         sess500 = phase_session(torch, gt, "trained_500k", setup500, card)
+    scene500 = setup500[0]
+    del setup500
+    torch.cuda.empty_cache()
+
+    with Phase("train-kernel-vs-plain", torch):
+        tcfg = train_500k_config(gt)
+        truth = gt.SceneParams.from_scene(scene500)
+        with torch.no_grad():
+            sf, asg = train_inputs(gt, perturbed(torch, gt, truth),
+                                   train_poses(gt, tcfg)[0], tcfg)
+        train_times = phase_train_kernel_vs_plain(torch, gt, (sf, asg, tcfg))
+        del sf, asg, truth
+
+    with Phase("train-500k", torch):
+        train_res = phase_train(torch, gt, scene500, card)
+    del scene500
+    torch.cuda.empty_cache()
+
+    with Phase("train-bench-shape", torch):
+        bench_res = phase_train_bench(torch, gt, card)
 
     out({"kernels": [{
         "name": "tile_render2",
@@ -1003,7 +1505,24 @@ def main() -> int:
         "library_call": "torch.take of the bf16-rounded f32 table, clamped int64 indices",
         "per_position": lookup_res["per_position"],
         "trained_500k_launches": sess500["kernel_launches"]["lookup"],
-    }]})
+    }] + [{
+        "name": f"tile_train_{kind}",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/tile_train.cu",
+        "replaces": f"gaussianrenderer_tpu/ops/pallas/tile_train.py:{line}",
+        "launches": train_res["kernel_launches"][f"tile_train_{kind}"],
+        "max_abs_err": train_times[f"{kind}_max_abs_err"],
+        "ms": train_times[f"{kind}_ms"],
+        "plain_ms": train_times[f"{kind}_plain_ms"],
+        "bound_ms": train_times[f"{kind}_bound_ms"],
+        "bound_by": train_times[f"{kind}_bound_by"],
+        "library_ms": None,
+        "shape": (f"trained_500k, {TRAIN_W}x{TRAIN_H}, 32x32 tiles, chunk 128, "
+                  f"{train_times['instances']} instances (first training step)"),
+        "gradient_max_rel_err": train_times["bwd_max_rel_err"] if kind == "bwd" else None,
+        "step_ms_median": train_res["step_ms_median"],
+        "bench_shape_step_ms_median": bench_res["step_ms_median"],
+    } for kind, line in (("fwd", 154), ("bwd", 295))]})
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     out(card_line())
     out({"ok": True, "device": {

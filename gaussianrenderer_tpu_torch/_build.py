@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
-SOURCES = ("tile_render2", "lookup")
+SOURCES = ("tile_render2", "lookup", "tile_train")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,6 +53,15 @@ _SIGNATURES = {
             _c_int,
             [_c_void_p, _c_int, _c_void_p, _c_int, ctypes.c_longlong, _c_void_p,
              _c_void_p],
+        ),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "tile_train": {
+        "gr_train_forward": (
+            _c_int, [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p],
+        ),
+        "gr_train_backward": (
+            _c_int, [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

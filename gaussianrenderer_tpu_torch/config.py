@@ -2,10 +2,9 @@
 
 A copy of ``gaussianrenderer_tpu.config.RenderConfig`` with the same
 fields and derived properties, so one configuration reads the same in
-both packages. Fields that only the JAX package's later features read
-(tier ladder, saturation cull, train compositor) are kept so a config
-can be carried across unchanged; this port's ``render_frame`` rejects
-the options it does not implement yet instead of ignoring them.
+both packages. Fields that size the JAX package's static buffers (the
+instance capacity and tier ladder) are kept so a config can be carried
+across unchanged; the port emits by count → scan and does not read them.
 """
 
 from __future__ import annotations
@@ -36,13 +35,19 @@ class RenderConfig:
     #: k-sigma radius of the screen-space AABB (camera params carry the
     #: per-frame value; this is only the default).
     k_sigma: float = 3.0
+    #: Size the JAX package's static instance buffer; the port's emission
+    #: has no static size, so these are not read.
     instance_multiplier: float = 8.0
     min_instance_capacity: int = 4096
+    #: Instance lanes per chunk of the f32 tile-sort compositors (xla,
+    #: diff and the training kernels).
     chunk_size: int = 128
     #: Instance lanes per compositor chunk: the granularity of the tile
     #: walk and of its early exit.
     packed_chunk: int = 256
-    #: "packed" is the only compositor of this port so far.
+    #: "packed" (the CUDA packed-record compositor; on a grid it cannot
+    #: describe, the xla one), "xla" (f32 tile sort, early exit) or "diff"
+    #: (differentiable: the training kernels or the scan compositor).
     compositor: str = "packed"
     #: Composite over a background color (r, g, b in [0, 1]) as
     #: rgb + T_final·bg; None keeps the implicit black.
@@ -52,8 +57,18 @@ class RenderConfig:
     #: Append the expected-depth row Σ wᵢ·dᵢ. Channel order: rgb,
     #: [alpha], [depth].
     output_depth: bool = False
+    #: The scan compositor ("diff" without the kernels) walks at most this
+    #: many chunks per tile; the training kernels do not truncate.
     diff_max_chunks: int = 32
+    #: "diff" takes the training kernels (ops/tile_train.py) when the tile
+    #: is a multiple of 128 pixels and no depth row is asked for; False
+    #: (or otherwise) takes the scan compositor. On the card the kernels
+    #: also need at most 4096 pixels a tile (64×64) and raise ValueError
+    #: past it, where the JAX package's kernel takes any multiple of 128:
+    #: larger tiles need diff_kernel=False there.
     diff_kernel: bool = True
+    #: Kept for the JAX package's signature and not read there or here:
+    #: the sort key spends the bits the tile id leaves on depth.
     depth_scale: float = 1.0e6
     #: Round splat centers to integer pixels.
     quantize_centers: bool = True
@@ -62,6 +77,7 @@ class RenderConfig:
     #: Scale opacity by sqrt(det(Σ)/det(Σ + dilation·I)) (upstream 3DGS
     #: antialiasing mode); only meaningful with ``ewa_dilation > 0``.
     ewa_compensate: bool = False
+    #: The JAX package's instance tier ladder; not read (no static lanes).
     tier_boost: int = 0
     tiers: Optional[tuple] = None
     sat_cull: bool = False

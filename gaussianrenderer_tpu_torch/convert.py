@@ -1,4 +1,4 @@
-"""Carry scene, camera and projection state across from NumPy arrays.
+"""Carry scene, camera and training state across from NumPy arrays.
 
 The JAX package's containers hold the same fields under the same names.
 Each function here takes any object with those attributes (a JAX-side
@@ -16,6 +16,7 @@ import torch
 from gaussianrenderer_tpu_torch._device import resolve_device
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
+from gaussianrenderer_tpu_torch.train import SceneParams
 
 
 def _tensor(x, dev, dtype=None):
@@ -44,3 +45,14 @@ def to_torch_camera(cam, device="cuda") -> CameraParams:
         *(_tensor(getattr(cam, f), dev, np.float32) for f in CameraParams._fields)
     )
 
+
+
+def to_torch_params(params, device="cuda"):
+    """Trainable parameters (positions, sh, raw_opacity, raw_scales,
+    quats, optional time_params; the JAX package's ``SceneParams`` after
+    ``np.asarray`` on its leaves) → the port's ``train.SceneParams``
+    (float32) on ``device``."""
+    dev = resolve_device(device)
+    return SceneParams(
+        *(_tensor(getattr(params, f), dev, np.float32) for f in SceneParams._fields)
+    )

@@ -7,6 +7,17 @@ for operation on float32 (N,) columns, so the integer outputs (``valid``,
 the pixel AABB, the rounded centers, the tile rects) come out bit-equal.
 Float→int conversions saturate like XLA's instead of relying on the
 host's undefined behaviour for NaN and out-of-range values.
+
+Gradients: autograd reaches the fields the JAX package differentiates
+(color, center, conic, opacity, depth). The pixel AABB and tile rect end
+in floors, integer casts and masks, which carry no gradient there; here
+they are computed without autograd, so torch never multiplies a zero
+cotangent by an infinite local derivative (a square root of 0, atan2 at
+the origin) into NaN. And an invalid splat gets exactly zero gradient in
+every input, as culled splats do in the reference rasterizer: its
+features are never composited, but its own arithmetic may be non-finite
+(a NaN parameter, a splat at the camera), and 0·NaN would reach the
+parameters. Neither changes a forward value.
 """
 
 from __future__ import annotations
@@ -53,6 +64,34 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     (53 ≥ 2·24 + 2 bits makes the double rounding innocuous), which is
     what XLA and CUDA's sqrtf return."""
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+class _KeepRows(torch.autograd.Function):
+    """Identity whose backward zeroes the gradient rows (leading axis)
+    where ``rows.mask`` is False; the mask is set after the forward."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mask = ctx.rows.mask.reshape((-1,) + (1,) * (grad.dim() - 1))
+        return torch.where(mask, grad, 0.0), None
+
+
+class _ValidRows:
+    """Passes each input through :class:`_KeepRows`, then takes the mask
+    of valid splats once the projection knows it."""
+
+    def __init__(self):
+        self.mask = None
+
+    def __call__(self, x):
+        if x is None or not (x.requires_grad and torch.is_grad_enabled()):
+            return x
+        return _KeepRows.apply(x, self)
 
 
 def slice_spacetime(scene: GaussianScene, time_value):
@@ -115,17 +154,22 @@ def preprocess_gaussians(
     quantize_centers: bool = True,
     ewa_dilation: float = 0.0,
     ewa_compensate: bool = False,
+    ndc_probe: Optional[torch.Tensor] = None,
 ) -> ProjectedGaussians:
     """Vectorized cull + color + EWA projection for all N Gaussians.
 
     ``extra_opacity_scale`` is an optional (N,) multiplier on opacities
-    (the 4D time slice's temporal opacity).
+    (the 4D time slice's temporal opacity). ``ndc_probe`` is an optional
+    (2, N) all-zeros tensor added to the NDC center: it changes nothing,
+    and its gradient is dL/d(NDC center), the view-space positional
+    gradient adaptive density control keys on.
     """
     f32 = torch.float32
-    pos_t = scene.positions.to(f32).T  # (3, N)
-    quat_t = scene.quats.to(f32).T  # (4, N)
-    scale_t = scene.scales.to(f32).T  # (3, N)
-    sh_t = scene.sh.to(f32).T  # (3(deg+1)², N)
+    rows = _ValidRows()
+    pos_t = rows(scene.positions).to(f32).T  # (3, N)
+    quat_t = rows(scene.quats).to(f32).T  # (4, N)
+    scale_t = rows(scene.scales).to(f32).T  # (3, N)
+    sh_t = rows(scene.sh).to(f32).T  # (3(deg+1)², N)
     px_, py_, pz_ = pos_t[0], pos_t[1], pos_t[2]
 
     # ------------------------------------------------ SH view-dependent color
@@ -152,6 +196,10 @@ def preprocess_gaussians(
     ndc_x = clip_x / safe_w
     ndc_y = clip_y / safe_w
     ndc_z = clip_z / safe_w
+    if ndc_probe is not None:
+        probe = rows(ndc_probe.T).T
+        ndc_x = ndc_x + probe[0]
+        ndc_y = ndc_y + probe[1]
 
     finite_cam = torch.isfinite(cx) & torch.isfinite(cy) & torch.isfinite(cz)
     finite_ndc = (
@@ -240,67 +288,71 @@ def preprocess_gaussians(
     conic_b = -2.0 * sxy * inv_det
     conic_c = sxx * inv_det
 
-    # Closed-form eigenvalues + angle → k-sigma axis-aligned extents.
-    tr = sxx + syy
-    dif = sxx - syy
-    rad = sqrt_f32(torch.clamp_min(dif * dif + 4.0 * sxy * sxy, 0.0))
-    lam1 = torch.clamp_min(0.5 * (tr + rad), 1e-8)
-    lam2 = torch.clamp_min(0.5 * (tr - rad), 1e-8)
-    theta = 0.5 * torch.atan2(2.0 * sxy, dif)
-    r1 = cam.k_sigma * sqrt_f32(lam1)
-    r2 = cam.k_sigma * sqrt_f32(lam2)
-    c_t = torch.cos(theta)
-    s_t = torch.sin(theta)
-    ex = (torch.abs(r1 * c_t) + torch.abs(r2 * s_t)) / half_w
-    ey = (torch.abs(r1 * s_t) + torch.abs(r2 * c_t)) / half_h
-
-    xmin = ndc_x - ex
-    xmax = ndc_x + ex
-    ymin = ndc_y - ey
-    ymax = ndc_y + ey
-    on_screen = ~(
-        (xmax < -0.99) | (xmin > 0.99) | (ymax < -0.99) | (ymin > 0.99)
-    )
-
-    xmin = torch.clamp_min(xmin, -1.0)
-    xmax = torch.clamp_max(xmax, 1.0)
-    ymin = torch.clamp_min(ymin, -1.0)
-    ymax = torch.clamp_max(ymax, 1.0)
-
-    # Floor the low edges and ceil the high ones; round the centers.
-    xmin_px = torch.floor((xmin + 1.0) * 0.5 * width)
-    xmax_px = torch.ceil((xmax + 1.0) * 0.5 * width)
-    ymin_px = torch.floor((ymin + 1.0) * 0.5 * height)
-    ymax_px = torch.ceil((ymax + 1.0) * 0.5 * height)
-
     cx_px = (ndc_x + 1.0) * 0.5 * width
     cy_px = (ndc_y + 1.0) * 0.5 * height
     if quantize_centers:
         cx_px = torch.round(cx_px)
         cy_px = torch.round(cy_px)
 
-    opacity = scene.opacity.to(f32)
+    opacity = rows(scene.opacity).to(f32)
     if extra_opacity_scale is not None:
-        opacity = opacity * extra_opacity_scale
+        opacity = opacity * rows(extra_opacity_scale)
     if ewa_compensate and ewa_dilation > 0.0:
         det0 = (sxx - ewa_dilation) * (syy - ewa_dilation) - sxy * sxy
         opacity = opacity * sqrt_f32(torch.clamp_min(det0, 0.0) * inv_det)
 
-    # Threshold-ellipse coverage bound: alpha ≥ ALPHA_EPS needs
-    # md² ≤ gain = 2·ln(op/ε), whose exact pixel extent is ±√(gain·Σxx);
-    # the emitted AABB is its intersection with the k·σ box (margins as
-    # in the JAX version).
-    gain = 2.0 * torch.log((opacity + 1e-4) * (1.0 / ALPHA_EPS))
-    gain = torch.clamp_min(gain, 0.0) * (1.0 + 2.0**-6)
-    ext_x = sqrt_f32(gain * torch.clamp_min(sxx, 0.0)) + 1.0
-    ext_y = sqrt_f32(gain * torch.clamp_min(syy, 0.0)) + 1.0
-    xmin_px = torch.maximum(xmin_px, torch.floor(cx_px - ext_x))
-    xmax_px = torch.minimum(xmax_px, torch.ceil(cx_px + ext_x))
-    ymin_px = torch.maximum(ymin_px, torch.floor(cy_px - ext_y))
-    ymax_px = torch.minimum(ymax_px, torch.ceil(cy_px + ext_y))
-    nonempty = (xmax_px >= xmin_px) & (ymax_px >= ymin_px)
+    # The pixel AABB and the tile rect feed only floors, integer casts and
+    # masks: computed without autograd (module docstring).
+    with torch.no_grad():
+        # Closed-form eigenvalues + angle → k-sigma axis-aligned extents.
+        tr = sxx + syy
+        dif = sxx - syy
+        rad = sqrt_f32(torch.clamp_min(dif * dif + 4.0 * sxy * sxy, 0.0))
+        lam1 = torch.clamp_min(0.5 * (tr + rad), 1e-8)
+        lam2 = torch.clamp_min(0.5 * (tr - rad), 1e-8)
+        theta = 0.5 * torch.atan2(2.0 * sxy, dif)
+        r1 = cam.k_sigma * sqrt_f32(lam1)
+        r2 = cam.k_sigma * sqrt_f32(lam2)
+        c_t = torch.cos(theta)
+        s_t = torch.sin(theta)
+        ex = (torch.abs(r1 * c_t) + torch.abs(r2 * s_t)) / half_w
+        ey = (torch.abs(r1 * s_t) + torch.abs(r2 * c_t)) / half_h
+
+        xmin = ndc_x - ex
+        xmax = ndc_x + ex
+        ymin = ndc_y - ey
+        ymax = ndc_y + ey
+        on_screen = ~(
+            (xmax < -0.99) | (xmin > 0.99) | (ymax < -0.99) | (ymin > 0.99)
+        )
+
+        xmin = torch.clamp_min(xmin, -1.0)
+        xmax = torch.clamp_max(xmax, 1.0)
+        ymin = torch.clamp_min(ymin, -1.0)
+        ymax = torch.clamp_max(ymax, 1.0)
+
+        # Floor the low edges and ceil the high ones.
+        xmin_px = torch.floor((xmin + 1.0) * 0.5 * width)
+        xmax_px = torch.ceil((xmax + 1.0) * 0.5 * width)
+        ymin_px = torch.floor((ymin + 1.0) * 0.5 * height)
+        ymax_px = torch.ceil((ymax + 1.0) * 0.5 * height)
+
+        # Threshold-ellipse coverage bound: alpha ≥ ALPHA_EPS needs
+        # md² ≤ gain = 2·ln(op/ε), whose exact pixel extent is ±√(gain·Σxx);
+        # the emitted AABB is its intersection with the k·σ box (margins as
+        # in the JAX version).
+        gain = 2.0 * torch.log((opacity + 1e-4) * (1.0 / ALPHA_EPS))
+        gain = torch.clamp_min(gain, 0.0) * (1.0 + 2.0**-6)
+        ext_x = sqrt_f32(gain * torch.clamp_min(sxx, 0.0)) + 1.0
+        ext_y = sqrt_f32(gain * torch.clamp_min(syy, 0.0)) + 1.0
+        xmin_px = torch.maximum(xmin_px, torch.floor(cx_px - ext_x))
+        xmax_px = torch.minimum(xmax_px, torch.ceil(cx_px + ext_x))
+        ymin_px = torch.maximum(ymin_px, torch.floor(cy_px - ext_y))
+        ymax_px = torch.minimum(ymax_px, torch.ceil(cy_px + ext_y))
+        nonempty = (xmax_px >= xmin_px) & (ymax_px >= ymin_px)
 
     valid = survived_cull & det_ok & on_screen & nonempty
+    rows.mask = valid
 
     # Tile coverage via integer (floor) stride division.
     tmin_x = torch.clamp(to_int32(xmin_px) // tile_w, 0, tiles_x - 1)

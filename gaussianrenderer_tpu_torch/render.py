@@ -1,10 +1,11 @@
-"""Rendered frames on the packed path (PyTorch port of ``render.py``).
+"""Rendered frames (PyTorch port of ``render.py``).
 
     framebuffer, stats = render_frame(scene, camera_params, cfg)
     render = make_renderer(scene, cfg)           # a session
     framebuffer, stats = render(camera_params)   # once per frame
 
-Pipeline, each stage on the scene's device:
+Packed path (``compositor="packed"`` on a packed-compatible grid), each
+stage on the scene's device:
 
 1. ``slice_spacetime`` + ``preprocess_gaussians`` — cull, SH color, EWA
    projection, pixel AABB and tile rect (ops/projection.py);
@@ -20,6 +21,15 @@ image), the saturation cull (ops/satcull.py) drops splats and
 (splat, tile) pairs behind last frame's saturated blocks before
 emission, and the compositor's census gives this frame's cutoffs.
 
+The f32 tile-sort path serves ``compositor="xla"``, ``"diff"`` (the
+differentiable one training uses) and ``"packed"`` on a grid the packed
+records cannot describe: ``build_sorted_instances`` (ops/tiling.py),
+``build_features`` and the feature gather (ops/compositing.py), then
+``composite_tiles_xla``, ``composite_tiles_diff`` or, for ``"diff"`` with
+``cfg.diff_kernel`` on 128-pixel-multiple tiles and no depth row, the
+training compositor's kernels (``composite_tiles_train``,
+ops/tile_train.py).
+
 The framebuffer is planar (3, H, W) float32 with row 0 at NDC y = −1.
 """
 
@@ -34,12 +44,24 @@ import torch
 
 from gaussianrenderer_tpu_torch.config import RenderConfig
 from gaussianrenderer_tpu_torch.ops import satcull
+from gaussianrenderer_tpu_torch.ops.compositing import (
+    build_features,
+    composite_tiles_diff,
+    composite_tiles_xla,
+    gather_sorted_features,
+    gather_sorted_features_seg,
+)
 from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import composite_tiles_packed
 from gaussianrenderer_tpu_torch.ops.instances import build_packed_instances
 from gaussianrenderer_tpu_torch.ops.projection import (
     preprocess_gaussians,
     slice_spacetime,
 )
+from gaussianrenderer_tpu_torch.ops.tile_train import (
+    composite_tiles_train,
+    train_kernel_compatible,
+)
+from gaussianrenderer_tpu_torch.ops.tiling import build_sorted_instances
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
 
@@ -53,9 +75,10 @@ class RenderStats(NamedTuple):
     #: static capacity, so this is always False.
     overflow: torch.Tensor
     #: (len(AREA_BUCKETS)+1,) int64 effective-lane histogram of the valid
-    #: splats (ops/instances.py), or None where a path does not report it.
+    #: splats (ops/instances.py; packed path only, None otherwise).
     area_hist: Optional[torch.Tensor] = None
-    #: () bool — a tile-local center saturated the fixed-point encode.
+    #: () bool — a tile-local center saturated the fixed-point encode
+    #: (packed path only).
     center_clipped: Optional[torch.Tensor] = None
     #: () int64 (sat_cull frames only) — splats dropped by the saturation
     #: cull this frame.
@@ -64,15 +87,6 @@ class RenderStats(NamedTuple):
     #: frame (culling active) but did not saturate this frame: the
     #: disocclusion signal. They publish SAT_NONE for the next frame.
     sat_risk: Optional[torch.Tensor] = None
-
-
-def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.compositor != "packed" or not cfg.packed_compatible:
-        raise NotImplementedError(
-            "render_frame: only compositor='packed' on a packed-compatible "
-            f"tile grid is ported so far (got compositor={cfg.compositor!r}, "
-            f"tiles {cfg.tile_w}x{cfg.tile_h})"
-        )
 
 
 def render_frame(
@@ -91,12 +105,30 @@ def render_frame(
     they do not apply.
 
     With ``cfg.sat_cull`` and ``sat_state`` (the previous frame's (sy, sx)
-    cutoff image; ``satcull.initial_cutoff`` for the first frame) the
+    cutoff image; ``satcull.initial_cutoff`` for the first frame) a packed
     frame is culled and the return is ``(fb, stats, new_sat_state)``;
-    without ``sat_state`` the frame renders unculled and returns two
-    values. ``make_renderer`` threads the state.
+    without ``sat_state``, or on the tile-sort path, the frame renders
+    unculled and returns two values. ``make_renderer`` threads the state.
     """
-    _check_supported(cfg)
+    return _render_impl(scene, cam, cfg, time_value, sat_state=sat_state)
+
+
+def _render_impl(
+    scene: GaussianScene,
+    cam: CameraParams,
+    cfg: RenderConfig,
+    time_value: Optional[float] = None,
+    ndc_probe: Optional[torch.Tensor] = None,
+    sat_state: Optional[torch.Tensor] = None,
+):
+    """``render_frame`` with the training hook ``ndc_probe`` ((2, N)
+    zeros added to the NDC centers, whose gradient is the view-space
+    positional gradient; ``train.render_for_training``)."""
+    if cfg.compositor not in ("packed", "xla", "diff"):
+        raise ValueError(
+            f"unknown compositor {cfg.compositor!r}; expected 'packed', 'xla', "
+            "or 'diff'"
+        )
     scene, extra_opacity = slice_spacetime(scene, time_value)
     proj = preprocess_gaussians(
         scene,
@@ -112,7 +144,11 @@ def render_frame(
         quantize_centers=cfg.quantize_centers,
         ewa_dilation=cfg.ewa_dilation,
         ewa_compensate=cfg.ewa_compensate,
+        ndc_probe=ndc_probe,
     )
+    if cfg.compositor != "packed" or not cfg.packed_compatible:
+        return _render_tile_sort(proj, cam, cfg)
+
     want_alpha = cfg.output_alpha or cfg.background is not None
     with_sat = cfg.sat_cull and sat_state is not None
     sat_culled = sat_cut_q = None
@@ -173,6 +209,45 @@ def render_frame(
     )
     if with_sat:
         return _finish_fb(fb, cfg), stats, new_cutoff
+    return _finish_fb(fb, cfg), stats
+
+
+def _render_tile_sort(proj, cam: CameraParams, cfg: RenderConfig):
+    """The f32 tile-sort path: sorted instances, gathered feature rows and
+    the xla, diff or training compositor; returns ``(fb, stats)``."""
+    want_alpha = cfg.output_alpha or cfg.background is not None
+    want_depth = cfg.output_depth
+    assignment = build_sorted_instances(
+        proj, tiles_x=cfg.tiles_x, num_tiles=cfg.num_tiles, near=cam.near,
+        far=cam.far,
+    )
+    feats = build_features(proj)
+    geom = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
+                tile_h=cfg.tile_h, width=cfg.width, height=cfg.height,
+                chunk_size=cfg.chunk_size, return_alpha=want_alpha)
+    ranges = (assignment.tile_start, assignment.tile_count)
+    if cfg.compositor == "diff":
+        sorted_feats = gather_sorted_features_seg(feats, assignment, cfg.chunk_size)
+        if (
+            cfg.diff_kernel
+            and train_kernel_compatible(cfg.tile_w, cfg.tile_h)
+            and not want_depth
+        ):
+            fb = composite_tiles_train(sorted_feats, *ranges, **geom)
+        else:
+            fb = composite_tiles_diff(sorted_feats, *ranges, **geom,
+                                      max_chunks=cfg.diff_max_chunks,
+                                      return_depth=want_depth)
+    else:
+        # "packed" lands here only on a grid that is not packed-compatible.
+        sorted_feats = gather_sorted_features(feats, assignment, cfg.chunk_size)
+        fb = composite_tiles_xla(sorted_feats, *ranges, **geom,
+                                 return_depth=want_depth)
+    stats = RenderStats(
+        num_culled=proj.valid.sum(),
+        num_instances=assignment.total_instances,
+        overflow=assignment.overflow,
+    )
     return _finish_fb(fb, cfg), stats
 
 

@@ -82,6 +82,18 @@ def needle_scene(n=600, seed=3):
     return js, to_torch_scene(js, device="cpu")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread for the test: the suite runs one
+    worker process per core, and each worker's torch spinning up a thread
+    per core makes the large elementwise passes of the plain compositors
+    stall on descheduled threads (a 1 s test took over 100 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def psnr_np(a, b):
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)

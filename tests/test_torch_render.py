@@ -76,10 +76,14 @@ def test_frame_matches_jax_and_oracle(case):
 
 
 def test_unsupported_options_raise():
+    """An unknown compositor raises. (``"xla"``, ``"diff"`` and ``"packed"``
+    on a grid the packed records cannot describe render through the
+    tile-sort path: tests/test_torch_render_diff.py.)"""
     ps = gt.make_random_scene(10, seed=0, device="cpu")
     _, pcam, _ = both_cameras(160, 128)
-    for kw in (dict(compositor="xla"), dict(num_tile_x=3, num_tile_y=3)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(compositor="bogus"), dict(compositor="bogus", num_tile_x=3,
+                                               num_tile_y=3)):
+        with pytest.raises(ValueError, match="compositor"):
             gt.render_frame(ps, pcam, gt.RenderConfig(height=128, width=160, **kw))
 
 
