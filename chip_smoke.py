@@ -63,10 +63,29 @@ its elapsed seconds:
 10. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
+11. gemm            — the GEMM harness: the port's apps/matrix_test at
+                      N = 8192 on random and on ones inputs (exit 0: the
+                      kernel within 1e-2 of torch.mm, out[0, 0] == N on
+                      ones); the kernel within GEMM_MAX_REL of its plain
+                      version at 8192³, every entry N on ones, and on the
+                      edge shapes; kernel, plain and torch.mm ms, TFLOP/s,
+                      the 1.11 ms bound, launches;
+12. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+                      instances rounded up to run 2048): one call, one
+                      launch; the kernel bit-equal to its plain version on
+                      all 9 rows for random u32 keys (half ≥ 2³¹) and
+                      tie-heavy keys at runs 256, 2048, 4096 and 16384;
+                      kernel, plain and library (torch.sort of the key
+                      view + one gather) ms beside the bound;
+13. sort-harness    — the port's apps/onesweep and apps/radix_test with
+                      their defaults on the card: exit 0, every JSONL
+                      record (build/radix_bench_port.jsonl) true on its
+                      checks.
 
-Then one JSON line of per-kernel numbers, the card line again, and as the
-last line ``{"ok": true, "device": {...}}``. Any failed check raises and
-the script exits non-zero without the ok line. Logs go to stderr.
+Then one JSON line of per-kernel numbers (six kernels), the card line
+again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
+check raises and the script exits non-zero without the ok line. Logs go
+to stderr.
 """
 
 from __future__ import annotations
@@ -96,8 +115,10 @@ GOLDEN_MIN_PSNR = 40.0
 ORBIT_MIN_PSNR = 40.0
 
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores and HBM bandwidth, at the 700 W power limit.
+#: cores, dense bf16 on the tensor cores and HBM bandwidth, at the 700 W
+#: power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 #: fp32/int operations per (pixel, instance lane) pair the compositor
 #: needs. Every pair of an in-image pixel and a walked lane pays the u8
@@ -163,6 +184,29 @@ OPS_TRAIN_BOX_TEST = 4
 OPS_TRAIN_ALPHA = 27
 OPS_TRAIN_FWD = 38
 OPS_TRAIN_BWD = 73
+
+#: The GEMM harness (apps/matrix_test) at its default N.
+GEMM_N = 8192
+#: GEMM kernel against its plain version, max |Δ| over the largest |entry|.
+#: bf16 products are exact in f32, so only the f32 summation differs: the
+#: plain version sums in cuBLAS's f32 SGEMM order, the kernel in the tensor
+#: cores' accumulator, whose rounding inside an MMA is not IEEE
+#: round-to-nearest. At K = 8192 on an H100 the kernel sits 9.8e-6 from
+#: the plain version, as far as torch.mm's own tensor-core product (both
+#: printed); the gate is twice that.
+GEMM_MAX_REL = 2e-5
+#: (M, K, N, block): an edge shape no 128-tile divides, with 8-blocks;
+#: an odd shape with 1-blocks (the kernel's element-wise load path).
+GEMM_EDGE_SHAPES = ((264, 136, 328, 8), (37, 13, 29, 1))
+#: The block sort at the render path's instance count: bench_3m's
+#: 5,585,012 instances rounded up to the default run of 2048.
+BLOCK_SORT_C = 5_586_944
+#: Runs held against the plain version: the smallest, the default, twice
+#: the default, the kernel's largest.
+BLOCK_SORT_RUNS = (256, 2048, 4096, 16384)
+#: Operations per compare-exchange pair and substage: one compare, and a
+#: select for each of the 9 rows of both outputs.
+OPS_COMPARE_EXCHANGE = 19
 
 
 def log(*args):
@@ -1364,6 +1408,218 @@ def phase_train_bench(torch, gt, card, steps=10, n=500_000, size=800):
     return res
 
 
+# ------------------------------------------------------------ harness phases
+def run_app(mod, argv):
+    """``mod.main()`` with ``argv`` as its arguments: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    saved = sys.argv
+    buf = io.StringIO()
+    sys.argv = [mod.__name__] + argv
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main()
+    finally:
+        sys.argv = saved
+    return rc, buf.getvalue()
+
+
+def app_times(text):
+    """{name: (ms, TFLOP/s)} of matrix_test's timing lines."""
+    res = {}
+    for line in text.splitlines():
+        parts = line.replace(":", "").split()
+        if len(parts) == 5 and parts[2] == "ms" and parts[4] == "TFLOP/s":
+            res[parts[0]] = (float(parts[1]), float(parts[3]))
+    return res
+
+
+def gemm_bound_ms(m, n, k):
+    """Least time of one (M, K)·(K, N) bf16 product with an f32 output on
+    an H100: 2·M·N·K operations at the dense bf16 tensor rate against
+    each input read once and the output written once at the HBM rate."""
+    ops_ms = 2.0 * m * n * k / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (2 * m * k + 2 * k * n + 4 * m * n) / PEAK_HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_gemm(torch, gt, card, n=GEMM_N):
+    """The GEMM harness's path: the port's ``matrix_test`` at N on random
+    and on ones inputs (it checks the kernel against ``torch.mm`` and the
+    ones closed form itself and exits 0 only if they hold); then the kernel
+    against its plain version on the same random inputs, on ones, on the
+    edge shape with 8-blocks and on an odd shape with 1-blocks (the
+    element-wise load path); kernel, plain and ``torch.mm`` times."""
+    from gaussianrenderer_tpu_torch.apps import matrix_test
+    from gaussianrenderer_tpu_torch.ops.cuda.matmul import matmul_blocked_plain
+
+    mm = gt.matmul_blocked
+    # matrix_test's default blocking (a contract only: the kernel tiles by
+    # 128 whatever it is given).
+    kw = dict(bm=min(512, n), bn=min(1024, n), bk=min(1024, n))
+    blocks = [f"--{k}={v}" for k, v in kw.items()]
+    mm.launches = 0
+    runs = {}
+    for label, extra in (("random", []), ("ones", ["--ones"])):
+        rc, text = run_app(matrix_test, ["--n", str(n), "--device", DEVICE] + blocks + extra)
+        log(text.rstrip())
+        check(rc == 0 and "-> OK" in text, f"matrix_test {label}: exit {rc}: {text!r}")
+        runs[label] = {"times": app_times(text), "stdout": text.splitlines()}
+    launches = mm.launches
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    b = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    got = mm(a, b, **kw)
+    want = matmul_blocked_plain(a, b, **kw)
+    lib = torch.mm(a, b, out_dtype=torch.float32)
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    lib_rel = float((lib - want).abs().max()) / scale
+    ones = torch.ones((n, n), dtype=torch.bfloat16, device=DEVICE)
+    ones_exact = bool(torch.equal(mm(ones, ones, **kw), torch.full((n, n), float(n),
+                                                                      device=DEVICE)))
+    cases = [{"case": f"gemm {n}^3 random", "max_rel_err": rel,
+              "torch_mm_vs_plain_rel_err": lib_rel, "max_abs_err": rel * scale},
+             {"case": f"gemm {n}^3 ones", "all_entries_equal_n": ones_exact}]
+    for m_, k_, n_, blk in GEMM_EDGE_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(m_)
+        ea = torch.randn((m_, k_), generator=g, device=DEVICE).to(torch.bfloat16)
+        eb = torch.randn((k_, n_), generator=g, device=DEVICE).to(torch.bfloat16)
+        ek = mm(ea, eb, bm=blk, bn=blk, bk=blk)
+        ep = matmul_blocked_plain(ea, eb, bm=blk, bn=blk, bk=blk)
+        erel = float((ek - ep).abs().max()) / float(ep.abs().max())
+        cases.append({"case": f"gemm ({m_}, {k_}) x ({k_}, {n_}), blocks {blk}",
+                      "max_rel_err": erel})
+        check(erel <= GEMM_MAX_REL, f"gemm edge {m_}x{k_}x{n_}: kernel vs plain {erel:.3g}")
+    for c in cases:
+        out(c)
+    check(rel <= GEMM_MAX_REL, f"gemm {n}^3: kernel vs plain {rel:.3g} of the largest entry")
+    check(ones_exact, f"gemm {n}^3 ones: an entry differs from {n}")
+
+    reps = 10
+    ms = cuda_ms(torch, lambda: mm(a, b, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: matmul_blocked_plain(a, b, **kw), 3)
+    library_ms = cuda_ms(torch, lambda: torch.mm(a, b, out_dtype=torch.float32), reps)
+    bound_ms, bound_by = gemm_bound_ms(n, n, n)
+    flops = 2.0 * n ** 3
+    res = {"gemm_times": {
+        "shape": f"({n}, {n}) x ({n}, {n}) bf16 -> f32",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "matrix_test": {k: v["times"] for k, v in runs.items()},
+        "launches": launches, "card": card}}
+    out(res)
+    res = res["gemm_times"]
+    res["max_abs_err"] = rel * scale
+    return res
+
+
+def block_sort_bound_ms(c, run):
+    """Least time of one block sort of a (9, C) int64 matrix on an H100:
+    each of the 9 int64 words of a column read once and written once (144
+    bytes) at the HBM rate, against one compare and 18 selects (the 9 rows
+    of both outputs) per pair and substage, log2(run)·(log2(run)+1)/2
+    substages over C/2 pairs, at the card's 32-bit rate outside the
+    tensor cores (the data sheet's fp32 figure)."""
+    log_run = run.bit_length() - 1
+    substages = log_run * (log_run + 1) // 2
+    bytes_ms = 144.0 * c / PEAK_HBM_BYTES * 1e3
+    ops_ms = substages * (c // 2) * OPS_COMPARE_EXCHANGE / PEAK_FP32_FLOPS * 1e3
+    bound = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return bound[0], bound[1], substages
+
+
+def sort_matrix(torch, c, key_hi, seed):
+    """(9, C) int64 of u32 values: keys in [0, key_hi), payloads full-range."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 2**32, (9, c), generator=g, device=DEVICE, dtype=torch.int64)
+    x[0] = torch.randint(0, key_hi, (c,), generator=g, device=DEVICE, dtype=torch.int64)
+    return x
+
+
+def phase_block_sort(torch, gt, card, c=BLOCK_SORT_C):
+    """The block sort's path, ``block_sort_runs`` itself (no app calls it,
+    as in the JAX package), at bench_3m's instance count rounded up to the
+    run: one call at the default run, launches counted; then the kernel
+    bit-equal to its plain version on all 9 rows for random and tie-heavy
+    keys at every tested run; kernel, plain and library times."""
+    from gaussianrenderer_tpu_torch.ops.cuda.block_sort import block_sort_runs_plain
+
+    bs = gt.block_sort_runs
+    x = sort_matrix(torch, c, 2**32, seed=0)
+    bs.launches = 0
+    y = bs(x)
+    torch.cuda.synchronize()
+    launches = bs.launches
+    check(launches == 1, f"block sort: {launches} launches for one call")
+    keys = y[0].view(c // 2048, 2048)
+    check(bool((keys[:, 1:] >= keys[:, :-1]).all()), "block sort: a run is not sorted")
+    check(int(x[0].max()) >= 2**31, "block sort: no key with the top bit set")
+
+    for run in BLOCK_SORT_RUNS:
+        for kind, key_hi in (("random u32", 2**32), ("tie-heavy, keys in [0, 16)", 16)):
+            xi = x if (run, key_hi) == (2048, 2**32) else sort_matrix(torch, c, key_hi, run)
+            got, want = bs(xi, run=run), block_sort_runs_plain(xi, run=run)
+            differ = int((got != want).sum())
+            out({"case": f"block sort run {run}, {kind}", "c": c,
+                 "elements_differing": differ,
+                 "max_abs": float((got - want).abs().max())})
+            check(differ == 0, f"block sort run {run} {kind}: {differ} elements differ")
+
+    def library(xi, run):
+        kv, perm = torch.sort(xi[0].view(-1, run), dim=1)
+        pay = torch.gather(xi[1:].view(8, -1, run), 2, perm.expand(8, -1, -1))
+        return kv, pay
+
+    times = {}
+    for run in BLOCK_SORT_RUNS:
+        bound_ms, bound_by, substages = block_sort_bound_ms(c, run)
+        times[run] = {
+            "ms": cuda_ms(torch, lambda: bs(x, run=run), 10),
+            "plain_ms": cuda_ms(torch, lambda: block_sort_runs_plain(x, run=run), 2),
+            "library_ms": cuda_ms(torch, lambda: library(x, run), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "substages": substages,
+        }
+    res = {"block_sort_times": {
+        "c": c, "shape": f"(9, {c}) u32 as int64, random keys",
+        "library_call": "torch.sort along dim 1 of the (C/run, run) key view + "
+                        "one torch.gather of the 8 payload rows",
+        "runs": times, "launches": launches, "card": card}}
+    out(res)
+    return res["block_sort_times"]
+
+
+def phase_sort_harness(torch, gt):
+    """The sort harnesses with their defaults on the card: the port's
+    ``onesweep`` (exit 0, every size PASS) and ``radix_test`` (exit 0,
+    every JSONL record true on its three checks), its JSONL under build/."""
+    from gaussianrenderer_tpu_torch.apps import onesweep, radix_test
+
+    rc, text = run_app(onesweep, ["--device", DEVICE])
+    last = text.strip().splitlines()[-1]
+    check(rc == 0 and last.endswith(" 0 failed"), f"onesweep: exit {rc}, {last!r}")
+    path = os.path.join(REPO, "build", "radix_bench_port.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    rc, _ = run_app(radix_test, ["--device", DEVICE, "--out", path])
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    check(rc == 0 and recs, f"radix_test: exit {rc}, {len(recs)} records")
+    check(all(r["nondecreasing"] and r["matches_oracle"] and r["radix_matches"]
+              for r in recs), "radix_test: a record failed its checks")
+    top = max(r["N"] for r in recs)
+    res = {"sort_harness": {
+        "onesweep": last, "radix_test_records": len(recs), "largest_n": top,
+        "device_ms_at_largest_n": {r["algo"]: r["device_ms"] for r in recs if r["N"] == top},
+        "record_device": {k: recs[0].get(k) for k in ("device", "platform", "torch", "cuda",
+                                                  "power_limit")}}}
+    out(res)
+    return res["sort_harness"]
+
+
 def main() -> int:
     import torch
 
@@ -1465,6 +1721,16 @@ def main() -> int:
     with Phase("train-bench-shape", torch):
         bench_res = phase_train_bench(torch, gt, card)
 
+    with Phase("gemm", torch):
+        gemm_res = phase_gemm(torch, gt, card)
+
+    with Phase("block-sort", torch):
+        sort_res = phase_block_sort(torch, gt, card)
+        torch.cuda.empty_cache()
+
+    with Phase("sort-harness", torch):
+        phase_sort_harness(torch, gt)
+
     out({"kernels": [{
         "name": "tile_render2",
         "route": "cuda",
@@ -1522,7 +1788,38 @@ def main() -> int:
         "gradient_max_rel_err": train_times["bwd_max_rel_err"] if kind == "bwd" else None,
         "step_ms_median": train_res["step_ms_median"],
         "bench_shape_step_ms_median": bench_res["step_ms_median"],
-    } for kind, line in (("fwd", 154), ("bwd", 295))]})
+    } for kind, line in (("fwd", 154), ("bwd", 295))] + [{
+        "name": "matmul",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/matmul.cu",
+        "replaces": "gaussianrenderer_tpu/ops/pallas/matmul.py:22",
+        "launches": gemm_res["launches"],
+        "max_abs_err": gemm_res["max_abs_err"],
+        "ms": gemm_res["ms"],
+        "plain_ms": gemm_res["plain_ms"],
+        "bound_ms": gemm_res["bound_ms"],
+        "bound_by": gemm_res["bound_by"],
+        "library_ms": gemm_res["library_ms"],
+        "shape": gemm_res["shape"],
+        "library_call": "torch.mm(a, b, out_dtype=torch.float32)",
+        "launches_in": "two apps/matrix_test runs (random, --ones), N 8192",
+    }, {
+        "name": "block_sort",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/block_sort.cu",
+        "replaces": "gaussianrenderer_tpu/ops/pallas/block_sort.py:50",
+        "launches": sort_res["launches"],
+        "max_abs_err": 0.0,
+        "ms": sort_res["runs"][2048]["ms"],
+        "plain_ms": sort_res["runs"][2048]["plain_ms"],
+        "bound_ms": sort_res["runs"][2048]["bound_ms"],
+        "bound_by": sort_res["runs"][2048]["bound_by"],
+        "library_ms": sort_res["runs"][2048]["library_ms"],
+        "shape": f"{sort_res['shape']}, run 2048",
+        "library_call": sort_res["library_call"],
+        "launches_in": ("one block_sort_runs call (not wired into a render or "
+                        "training path, as in the JAX package)"),
+    }]})
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     out(card_line())
     out({"ok": True, "device": {

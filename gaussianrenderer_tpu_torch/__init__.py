@@ -24,6 +24,11 @@ where every kernel's plain PyTorch version runs instead.
                                    loss_fn=gt.l1_dssim_loss)
     state = opt.init(params)
     params, state, loss = step(params, state, cam.params(3.0), target)
+
+    # The harnesses' kernels: the blocked bf16 GEMM and the bitonic block
+    # sort (apps/matrix_test, apps/radix_test, apps/onesweep).
+    c = gt.matmul_blocked(a_bf16, b_bf16, bm=128, bn=128, bk=128)  # f32
+    y = gt.block_sort_runs(x_u32_as_int64, run=2048)                # (9, C)
 """
 
 from gaussianrenderer_tpu_torch.config import RenderConfig, parse_color
@@ -38,7 +43,12 @@ from gaussianrenderer_tpu_torch.ops.compositing import (
     composite_tiles_diff,
     composite_tiles_xla,
 )
+from gaussianrenderer_tpu_torch.ops.cuda.block_sort import (
+    block_sort_runs,
+    block_sort_runs_plain,
+)
 from gaussianrenderer_tpu_torch.ops.cuda.lookup import table_lookup
+from gaussianrenderer_tpu_torch.ops.cuda.matmul import matmul_blocked, matmul_blocked_plain
 from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
     composite_tiles_packed,
     composite_tiles_packed_plain,
@@ -53,7 +63,14 @@ from gaussianrenderer_tpu_torch.ops.projection import (
     slice_spacetime,
 )
 from gaussianrenderer_tpu_torch.ops.sh import eval_sh_columns
-from gaussianrenderer_tpu_torch.ops.sort import pack_key, sort_packed
+from gaussianrenderer_tpu_torch.ops.sort import (
+    is_nondecreasing,
+    pack_key,
+    radix_sort_u32,
+    sort_packed,
+    sort_two_key,
+    unpack_key,
+)
 from gaussianrenderer_tpu_torch.ops.tile_train import composite_tiles_train
 from gaussianrenderer_tpu_torch.ops.tiling import TileAssignment, build_sorted_instances
 from gaussianrenderer_tpu_torch.render import (
@@ -88,6 +105,8 @@ __all__ = [
     "RenderStats",
     "SceneParams",
     "TileAssignment",
+    "block_sort_runs",
+    "block_sort_runs_plain",
     "build_features",
     "build_packed_instances",
     "build_sorted_instances",
@@ -98,6 +117,7 @@ __all__ = [
     "composite_tiles_xla",
     "eval_sh_columns",
     "framebuffer_to_image",
+    "is_nondecreasing",
     "l1_dssim_loss",
     "load_ply",
     "make_3dgs_optimizer",
@@ -105,11 +125,14 @@ __all__ = [
     "make_random_scene",
     "make_renderer",
     "make_train_step",
+    "matmul_blocked",
+    "matmul_blocked_plain",
     "morton_codes",
     "mse_loss",
     "pack_key",
     "parse_color",
     "preprocess_gaussians",
+    "radix_sort_u32",
     "render_for_training",
     "render_frame",
     "reset_opacity",
@@ -117,9 +140,11 @@ __all__ = [
     "save_png",
     "slice_spacetime",
     "sort_packed",
+    "sort_two_key",
     "ssim",
     "table_lookup",
     "to_torch_camera",
     "to_torch_params",
     "to_torch_scene",
+    "unpack_key",
 ]

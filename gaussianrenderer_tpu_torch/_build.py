@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
-SOURCES = ("tile_render2", "lookup", "tile_train")
+SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,6 +62,16 @@ _SIGNATURES = {
         ),
         "gr_train_backward": (
             _c_int, [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p],
+        ),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "matmul": {
+        "gr_matmul": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "block_sort": {
+        "gr_block_sort": (
+            _c_int, [_c_void_p, _c_void_p, ctypes.c_longlong, _c_int, _c_void_p],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

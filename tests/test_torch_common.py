@@ -130,6 +130,9 @@ def test_port_import_leaves_jax_unloaded():
     """Importing the whole port in a fresh interpreter loads no JAX module."""
     code = (
         "import sys, gaussianrenderer_tpu_torch, chip_smoke\n"
+        "import gaussianrenderer_tpu_torch.utils\n"
+        "from gaussianrenderer_tpu_torch.apps import (camera_test, matrix_test, onesweep,"
+        " parser_test, radix_test)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gaussianrenderer_tpu' or m.startswith('gaussianrenderer_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -157,6 +160,19 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(ValueError, match="device"):
         gt.table_lookup(torch.zeros(8, device="meta"),
                         torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        gt.matmul_blocked(torch.zeros((128, 128), dtype=torch.bfloat16, device="meta"),
+                          torch.zeros((128, 128), dtype=torch.bfloat16, device="meta"),
+                          128, 128, 128)
+    with pytest.raises(ValueError, match="device"):
+        gt.block_sort_runs(torch.zeros((9, 256), dtype=torch.int64, device="meta"), run=256)
+    # The harness utilities measure on the card or raise.
+    from gaussianrenderer_tpu_torch import utils
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        utils.measure_floor()
+    with pytest.raises(RuntimeError, match="cuda"):
+        utils.JsonlWriter(None)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
