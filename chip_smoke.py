@@ -20,9 +20,13 @@ its elapsed seconds:
                       lookup, bit for bit, on the inputs the culled 3M
                       frames give it (the pyramid of frame 1's cutoff
                       image sampled by all 3M splats; frame 2's candidate
-                      lanes), with out-of-range indices, and on a 4K
-                      pyramid (more than 16,384 entries); the lookup's
-                      times beside its bound and one ``torch.take``;
+                      lanes), with out-of-range indices, on a 4K pyramid
+                      (more than 16,384 entries) and a table of
+                      kMaxEntries, with a tail (N % 4 != 0) and with int32
+                      and int64 index views 16 bytes off alignment; the
+                      lookup's event, device-only (torch.profiler) and
+                      host enqueue times beside its bound and one
+                      ``torch.take``'s;
 5. goldens          — the five tests/fixtures/golden_*.npz setups rendered
                       by the port, PSNR ≥ 40 dB against each framebuffer;
 6. full-3m, profile-3m, full-trained-500k
@@ -64,12 +68,18 @@ its elapsed seconds:
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
 11. gemm            — the GEMM harness: the port's apps/matrix_test at
-                      N = 8192 on random and on ones inputs (exit 0: the
+                      N = 8192 on random and on ones inputs, both served
+                      by the wgmma + TMA kernel (``sm90``), and at the odd
+                      N = 1001, served by the ``wmma`` kernel (exit 0: the
                       kernel within 1e-2 of torch.mm, out[0, 0] == N on
                       ones); the kernel within GEMM_MAX_REL of its plain
                       version at 8192³, every entry N on ones, and on the
-                      edge shapes; kernel, plain and torch.mm ms, TFLOP/s,
-                      the 1.11 ms bound, launches;
+                      edge shapes (one for each kernel) and a 16-byte-
+                      misaligned input (``wmma``), each case with the
+                      kernel that served it and, on a mismatch, the first
+                      differing (row, col); each kernel's ms beside its
+                      plain version's, torch.mm's and its bound, TFLOP/s,
+                      launches per kernel;
 12. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       launch; the kernel bit-equal to its plain version on
@@ -82,7 +92,7 @@ its elapsed seconds:
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
 
-Then one JSON line of per-kernel numbers (six kernels), the card line
+Then one JSON line of per-kernel numbers (seven kernels: the GEMM's two), the card line
 again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero without the ok line. Logs go
 to stderr.
@@ -158,6 +168,9 @@ BENCH_ORBIT_DEG = 5.0
 #: 4K frame's saturation grid (3840×2160 in 16-px blocks): its pyramid has
 #: more than 16,384 entries.
 GRID_4K = (135, 240)
+#: The largest table the lookup kernel stages (csrc/lookup.cu kMaxEntries:
+#: 227 KB of shared memory as bf16).
+LOOKUP_MAX_ENTRIES = 232448 // 2
 
 #: The train kernels against their plain versions on the card: forward
 #: rows (rgb, T) max |Δ|, and the gradient per column relative to the
@@ -195,9 +208,17 @@ GEMM_N = 8192
 #: the plain version, as far as torch.mm's own tensor-core product (both
 #: printed); the gate is twice that.
 GEMM_MAX_REL = 2e-5
-#: (M, K, N, block): an edge shape no 128-tile divides, with 8-blocks;
-#: an odd shape with 1-blocks (the kernel's element-wise load path).
-GEMM_EDGE_SHAPES = ((264, 136, 328, 8), (37, 13, 29, 1))
+#: (M, K, N, block, kernel): an edge shape no 128-tile divides, with
+#: 8-blocks, which the sm90 kernel takes through TMA's zero fill; an odd
+#: shape with 1-blocks, whose K and N TMA cannot describe (the wmma
+#: kernel's element-wise load path).
+GEMM_EDGE_SHAPES = ((264, 136, 328, 8, "sm90"), (37, 13, 29, 1, "wmma"))
+#: (M, K, N, block) of the misaligned case: A starts 2 bytes into its
+#: storage, so TMA cannot take it and the wmma kernel serves it.
+GEMM_MISALIGNED = (264, 136, 328, 8)
+#: matrix_test's odd run (N and its 7-blocks not multiples of 8): the
+#: harness path through the wmma kernel.
+GEMM_ODD_N, GEMM_ODD_BLOCK = 1001, 7
 #: The block sort at the render path's instance count: bench_3m's
 #: 5,585,012 instances rounded up to the default run of 2048.
 BLOCK_SORT_C = 5_586_944
@@ -414,6 +435,25 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def cuda_ms_turns(torch, fns, reps):
+    """Median CUDA-event ms of each of ``fns`` (after one warm-up each),
+    timed in turns, one call of each per round, so that a slow spell of
+    the host falls on all of them alike."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(times, fns):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            t.append(e0.elapsed_time(e1))
+    return [statistics.median(t) for t in times]
+
+
 def compositor_bound_ms(torch, inst, cfg, walked, nc):
     """Least time for this frame's compositor work on an H100: the larger
     of the operations the walked lanes need over the fp32 peak and the
@@ -591,10 +631,46 @@ def lookup_bound_ms(n, idx_bytes, m):
     return (n * (idx_bytes + 4) + 4 * m) / PEAK_HBM_BYTES * 1e3
 
 
+def profiled_ms(torch, fn, reps=20):
+    """Device time of one ``fn()`` from torch.profiler: the CUDA kernels'
+    summed time over ``reps`` calls, divided by ``reps``; with the
+    kernels' names. "not measured" if the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if us is None else us
+            names.append(e.key[:60])
+    return (total / 1e3 / reps if total > 0 else "not measured"), names
+
+
+def enqueue_us(torch, fn, reps=1000):
+    """Host microseconds per ``fn()`` while the card keeps up: the time to
+    enqueue ``reps`` calls back to back, over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def phase_lookup(torch, gt, big, card):
     """The lookup kernel against its plain version, bit for bit, on the
     inputs bench_3m's culled frames give it, with out-of-range indices,
-    and on a 4K pyramid; then its times at the 3M rect_cutoff shape."""
+    on a 4K pyramid, on a table of kMaxEntries, with a tail and with
+    misaligned index views; then its times at the 3M rect_cutoff shape."""
     from gaussianrenderer_tpu_torch.ops import satcull
     from gaussianrenderer_tpu_torch.ops.cuda.lookup import bf16_ceil, table_lookup_plain
 
@@ -619,12 +695,30 @@ def phase_lookup(torch, gt, big, card):
     m4k = tab4k.shape[0]
     idx4k = torch.randint(-64, m4k + 64, (3_000_000,), generator=gen, device=DEVICE,
                           dtype=torch.int32)
+    tab_max = torch.rand((LOOKUP_MAX_ENTRIES,), generator=gen, device=DEVICE) * 1e4
+    idx_max = torch.randint(-64, LOOKUP_MAX_ENTRIES + 64, (1_000_003,), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+    # Views that start 4 (int32) and 8 (int64) bytes past a 16-byte
+    # boundary, and lengths that leave a tail after the last whole vector.
+    rect_off = torch.cat([rect_i[:1], rect_i])[1:]
+    pos_off = torch.cat([pos_i[:1], pos_i])[1:]
+    check(rect_off.data_ptr() % 16 == 4 and pos_off.data_ptr() % 16 == 8,
+          "lookup: the misaligned index views are aligned")
     cases = (
         ("1080p pyramid, 3M rect_cutoff indices", rect_t, rect_i, rect_kw),
         ("frame-2 candidate lanes (int64 tile ids)", pos_t, pos_i, pos_kw),
         ("1080p pyramid, out-of-range indices", rect_t, torch.cat([wild, near_edge]),
          rect_kw),
         ("4K pyramid", tab4k, idx4k, dict(r=128 * -(-m4k // 16384), q=128)),
+        ("table of kMaxEntries, tail of 3", tab_max, idx_max,
+         dict(r=128 * -(-LOOKUP_MAX_ENTRIES // 16384), q=128)),
+        # A head of 3 int32 to the boundary, then 4 a vector: 2 left over.
+        ("1080p pyramid, int32 view 4 bytes off, tail of 2", rect_t,
+         rect_off[:(rect_off.numel() - 5) // 4 * 4 + 5], rect_kw),
+        # A head of 1 int64, then 2 a vector: 1 left over.
+        ("frame-2 lanes, int64 view 8 bytes off, tail of 1", pos_t,
+         pos_off[:pos_off.numel() // 2 * 2], pos_kw),
+        ("1080p pyramid, 7 indices 4 bytes off", rect_t, rect_off[:7], rect_kw),
     )
     max_err = 0.0
     for name, table, idx, kw in cases:
@@ -638,14 +732,23 @@ def phase_lookup(torch, gt, big, card):
         check(diff == 0, f"lookup {name}: {diff} outputs differ from the plain version")
 
     def times(table, idx, kw, reps=20):
-        ms = cuda_ms(torch, lambda: gt.table_lookup(table, idx, **kw), reps)
+        kernel = lambda: gt.table_lookup(table, idx, **kw)  # noqa: E731
         plain_ms = cuda_ms(torch, lambda: table_lookup_plain(table, idx, **kw), reps)
         tab_r = table.to(torch.bfloat16).to(torch.float32)
         idx_c = torch.clamp(idx.to(torch.int64), 0, table.numel() - 1)
-        library_ms = cuda_ms(torch, lambda: torch.take(tab_r, idx_c), reps)
+        library = lambda: torch.take(tab_r, idx_c)  # noqa: E731
+        # Both take some 0.02 ms, as much host time as card time: timed in
+        # turns over many rounds, so the host's spread falls on both.
+        ms, library_ms = cuda_ms_turns(torch, (kernel, library), 10 * reps)
+        device_ms, device_kernels = profiled_ms(torch, kernel)
+        library_device_ms, library_kernels = profiled_ms(torch, library)
         return {
             "n": idx.numel(), "index_bytes": idx.element_size(), "table_entries": table.numel(),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "device_kernels": device_kernels, "library_device_kernels": library_kernels,
+            "host_enqueue_us": enqueue_us(torch, kernel),
+            "library_host_enqueue_us": enqueue_us(torch, library),
             "bound_ms": lookup_bound_ms(idx.numel(), idx.element_size(), table.numel()),
         }
 
@@ -1444,59 +1547,127 @@ def gemm_bound_ms(m, n, k):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def phase_gemm(torch, gt, card, n=GEMM_N):
-    """The GEMM harness's path: the port's ``matrix_test`` at N on random
-    and on ones inputs (it checks the kernel against ``torch.mm`` and the
-    ones closed form itself and exits 0 only if they hold); then the kernel
-    against its plain version on the same random inputs, on ones, on the
-    edge shape with 8-blocks and on an odd shape with 1-blocks (the
-    element-wise load path); kernel, plain and ``torch.mm`` times."""
-    from gaussianrenderer_tpu_torch.apps import matrix_test
+def gemm_counts(mm):
+    """Launches of each GEMM kernel so far, by name."""
+    return {"sm90": mm.launches_sm90, "wmma": mm.launches_wmma}
+
+
+def gemm_case(torch, mm, name, a, b, kw):
+    """One GEMM case: the kernel against its plain version, the launches
+    of each kernel it made and, on a mismatch, the first (row, col) past
+    the gate. Returns the case and the plain version's product."""
     from gaussianrenderer_tpu_torch.ops.cuda.matmul import matmul_blocked_plain
 
+    before = gemm_counts(mm)
+    got = mm(a, b, **kw)
+    served = {k: v - before[k] for k, v in gemm_counts(mm).items()}
+    want = matmul_blocked_plain(a, b, **kw)
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    rel = float(diff.max()) / scale
+    bad = (diff > GEMM_MAX_REL * scale).nonzero()
+    return {"case": name, "kernel": [k for k, v in served.items() if v], "launches": served,
+            "max_rel_err": rel, "max_abs_err": rel * scale,
+            "first_mismatch": [int(v) for v in bad[0]] if bad.shape[0] else None}, want
+
+
+def check_gemm_case(case, kernel):
+    """The case went through ``kernel`` once and stays within the gate."""
+    check(case["launches"] == {k: int(k == kernel) for k in case["launches"]},
+          f"{case['case']}: launches {case['launches']}, not one of {kernel}")
+    check(case["max_rel_err"] <= GEMM_MAX_REL,
+          f"{case['case']}: kernel vs plain {case['max_rel_err']:.3g} of the largest entry, "
+          f"first mismatch at (row, col) {case['first_mismatch']}")
+
+
+def phase_gemm(torch, gt, card, n=GEMM_N):
+    """The GEMM harness's path: the port's ``matrix_test`` at N on random
+    and on ones inputs, both through the sm90 kernel, and at an odd N
+    through the wmma kernel (it checks the kernel against ``torch.mm`` and
+    the ones closed form itself and exits 0 only if they hold); then the
+    kernel against its plain version on the same random inputs, on ones,
+    on the edge shapes and on a misaligned input, each through the kernel
+    it must take; each kernel's, its plain version's and ``torch.mm``'s
+    times."""
+    from gaussianrenderer_tpu_torch.apps import matrix_test
+    from gaussianrenderer_tpu_torch.ops.cuda.matmul import gemm_kernel, matmul_blocked_plain
+
     mm = gt.matmul_blocked
-    # matrix_test's default blocking (a contract only: the kernel tiles by
-    # 128 whatever it is given).
+    # matrix_test's default blocking (a contract only: the kernels tile by
+    # 128x256 and 128x128 whatever they are given).
     kw = dict(bm=min(512, n), bn=min(1024, n), bk=min(1024, n))
     blocks = [f"--{k}={v}" for k, v in kw.items()]
-    mm.launches = 0
+    okw = dict(bm=GEMM_ODD_BLOCK, bn=GEMM_ODD_BLOCK, bk=GEMM_ODD_BLOCK)
+    odd_blocks = [f"--{k}={v}" for k, v in okw.items()]
     runs = {}
-    for label, extra in (("random", []), ("ones", ["--ones"])):
-        rc, text = run_app(matrix_test, ["--n", str(n), "--device", DEVICE] + blocks + extra)
+    launches = {"sm90": 0, "wmma": 0}
+    for label, argv, kernel in (
+        ("random", ["--n", str(n)] + blocks, "sm90"),
+        ("ones", ["--n", str(n), "--ones"] + blocks, "sm90"),
+        (f"odd {GEMM_ODD_N}", ["--n", str(GEMM_ODD_N)] + odd_blocks, "wmma"),
+    ):
+        mm.launches = mm.launches_sm90 = mm.launches_wmma = 0
+        rc, text = run_app(matrix_test, argv + ["--device", DEVICE])
+        served = gemm_counts(mm)
         log(text.rstrip())
+        out({"matrix_test": label, "launches": served})
         check(rc == 0 and "-> OK" in text, f"matrix_test {label}: exit {rc}: {text!r}")
-        runs[label] = {"times": app_times(text), "stdout": text.splitlines()}
-    launches = mm.launches
+        check(served[kernel] == mm.launches > 0,
+              f"matrix_test {label}: launches {served}, not all through {kernel}")
+        runs[label] = {"times": app_times(text), "stdout": text.splitlines(),
+                       "launches": served}
+        for k in launches:
+            launches[k] += served[k]
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     a = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
     b = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
-    got = mm(a, b, **kw)
-    want = matmul_blocked_plain(a, b, **kw)
+    check(gemm_kernel(a, b) == "sm90", f"gemm {n}^3 would not take the sm90 kernel")
+    random_case, want = gemm_case(torch, mm, f"gemm {n}^3 random", a, b, kw)
     lib = torch.mm(a, b, out_dtype=torch.float32)
-    scale = float(want.abs().max())
-    rel = float((got - want).abs().max()) / scale
-    lib_rel = float((lib - want).abs().max()) / scale
+    random_case["torch_mm_vs_plain_rel_err"] = float((lib - want).abs().max()) / float(
+        want.abs().max())
+    del want, lib
     ones = torch.ones((n, n), dtype=torch.bfloat16, device=DEVICE)
+    before = gemm_counts(mm)
     ones_exact = bool(torch.equal(mm(ones, ones, **kw), torch.full((n, n), float(n),
                                                                       device=DEVICE)))
-    cases = [{"case": f"gemm {n}^3 random", "max_rel_err": rel,
-              "torch_mm_vs_plain_rel_err": lib_rel, "max_abs_err": rel * scale},
-             {"case": f"gemm {n}^3 ones", "all_entries_equal_n": ones_exact}]
-    for m_, k_, n_, blk in GEMM_EDGE_SHAPES:
+    served_ones = {k: v - before[k] for k, v in gemm_counts(mm).items()}
+    del ones
+    out(random_case)
+    out({"case": f"gemm {n}^3 ones", "kernel": [k for k, v in served_ones.items() if v],
+         "all_entries_equal_n": ones_exact})
+    check_gemm_case(random_case, "sm90")
+    check(served_ones == {"sm90": 1, "wmma": 0}, f"gemm {n}^3 ones: launches {served_ones}")
+    check(ones_exact, f"gemm {n}^3 ones: an entry differs from {n}")
+
+    max_err = {"sm90": random_case["max_abs_err"], "wmma": 0.0}
+    odd_small = {}
+    for m_, k_, n_, blk, kernel in GEMM_EDGE_SHAPES:
         g = torch.Generator(device=DEVICE).manual_seed(m_)
         ea = torch.randn((m_, k_), generator=g, device=DEVICE).to(torch.bfloat16)
         eb = torch.randn((k_, n_), generator=g, device=DEVICE).to(torch.bfloat16)
-        ek = mm(ea, eb, bm=blk, bn=blk, bk=blk)
-        ep = matmul_blocked_plain(ea, eb, bm=blk, bn=blk, bk=blk)
-        erel = float((ek - ep).abs().max()) / float(ep.abs().max())
-        cases.append({"case": f"gemm ({m_}, {k_}) x ({k_}, {n_}), blocks {blk}",
-                      "max_rel_err": erel})
-        check(erel <= GEMM_MAX_REL, f"gemm edge {m_}x{k_}x{n_}: kernel vs plain {erel:.3g}")
-    for c in cases:
-        out(c)
-    check(rel <= GEMM_MAX_REL, f"gemm {n}^3: kernel vs plain {rel:.3g} of the largest entry")
-    check(ones_exact, f"gemm {n}^3 ones: an entry differs from {n}")
+        ekw = dict(bm=blk, bn=blk, bk=blk)
+        case, _ = gemm_case(torch, mm, f"gemm ({m_}, {k_}) x ({k_}, {n_}), blocks {blk}",
+                            ea, eb, ekw)
+        out(case)
+        check_gemm_case(case, kernel)
+        max_err[kernel] = max(max_err[kernel], case["max_abs_err"])
+        if kernel == "wmma":
+            odd_small = {"shape": f"({m_}, {k_}) x ({k_}, {n_})",
+                         "ms": cuda_ms(torch, lambda: mm(ea, eb, **ekw), 20)}
+    m_, k_, n_, blk = GEMM_MISALIGNED
+    g = torch.Generator(device=DEVICE).manual_seed(m_ + 1)
+    # A starts one bf16 element into its storage: contiguous, 2 bytes off.
+    ea = torch.randn((m_ * k_ + 1,), generator=g, device=DEVICE).to(torch.bfloat16)[1:]
+    ea = ea.view(m_, k_)
+    eb = torch.randn((k_, n_), generator=g, device=DEVICE).to(torch.bfloat16)
+    check(ea.is_contiguous() and ea.data_ptr() % 16 != 0, "the misaligned case is aligned")
+    case, _ = gemm_case(torch, mm, f"gemm ({m_}, {k_}) x ({k_}, {n_}), A 2 bytes off 16-byte "
+                        f"alignment, blocks {blk}", ea, eb, dict(bm=blk, bn=blk, bk=blk))
+    out(case)
+    check_gemm_case(case, "wmma")
+    max_err["wmma"] = max(max_err["wmma"], case["max_abs_err"])
 
     reps = 10
     ms = cuda_ms(torch, lambda: mm(a, b, **kw), reps)
@@ -1504,16 +1675,34 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     library_ms = cuda_ms(torch, lambda: torch.mm(a, b, out_dtype=torch.float32), reps)
     bound_ms, bound_by = gemm_bound_ms(n, n, n)
     flops = 2.0 * n ** 3
+    del a, b
+
+    # The wmma kernel at matrix_test's odd shape.
+    no = GEMM_ODD_N
+    g = torch.Generator(device=DEVICE).manual_seed(no)
+    oa = torch.randn((no, no), generator=g, dtype=torch.bfloat16, device=DEVICE)
+    ob = torch.randn((no, no), generator=g, dtype=torch.bfloat16, device=DEVICE)
+    case, _ = gemm_case(torch, mm, f"gemm {no}^3 random, blocks {GEMM_ODD_BLOCK}", oa, ob, okw)
+    out(case)
+    check_gemm_case(case, "wmma")
+    max_err["wmma"] = max(max_err["wmma"], case["max_abs_err"])
+    wmma_bound_ms, wmma_bound_by = gemm_bound_ms(no, no, no)
+    wmma = {"shape": f"({no}, {no}) x ({no}, {no}) bf16 -> f32, blocks {GEMM_ODD_BLOCK}",
+            "ms": cuda_ms(torch, lambda: mm(oa, ob, **okw), 20),
+            "plain_ms": cuda_ms(torch, lambda: matmul_blocked_plain(oa, ob, **okw), 3),
+            "library_ms": cuda_ms(torch, lambda: torch.mm(oa, ob, out_dtype=torch.float32), 20),
+            "bound_ms": wmma_bound_ms, "bound_by": wmma_bound_by, "odd_small": odd_small}
+
     res = {"gemm_times": {
         "shape": f"({n}, {n}) x ({n}, {n}) bf16 -> f32",
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "matrix_test": {k: v["times"] for k, v in runs.items()},
-        "launches": launches, "card": card}}
+        "launches": launches, "wmma": wmma, "card": card}}
     out(res)
     res = res["gemm_times"]
-    res["max_abs_err"] = rel * scale
+    res["max_abs_err"] = max_err
     return res
 
 
@@ -1765,6 +1954,8 @@ def main() -> int:
         "bound_ms": lookup_res["rect_cutoff"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": lookup_res["rect_cutoff"]["library_ms"],
+        "device_ms": lookup_res["rect_cutoff"]["device_ms"],
+        "library_device_ms": lookup_res["rect_cutoff"]["library_device_ms"],
         "shape": (f"{lookup_res['rect_cutoff']['n']} int32 indices into a "
                   f"{lookup_res['rect_cutoff']['table_entries']}-entry pyramid "
                   "(bench_3m rect_cutoff, 1920x1080)"),
@@ -1789,12 +1980,12 @@ def main() -> int:
         "step_ms_median": train_res["step_ms_median"],
         "bench_shape_step_ms_median": bench_res["step_ms_median"],
     } for kind, line in (("fwd", 154), ("bwd", 295))] + [{
-        "name": "matmul",
+        "name": "matmul_sm90",
         "route": "cuda",
         "source": "gaussianrenderer_tpu_torch/csrc/matmul.cu",
         "replaces": "gaussianrenderer_tpu/ops/pallas/matmul.py:22",
-        "launches": gemm_res["launches"],
-        "max_abs_err": gemm_res["max_abs_err"],
+        "launches": gemm_res["launches"]["sm90"],
+        "max_abs_err": gemm_res["max_abs_err"]["sm90"],
         "ms": gemm_res["ms"],
         "plain_ms": gemm_res["plain_ms"],
         "bound_ms": gemm_res["bound_ms"],
@@ -1803,6 +1994,22 @@ def main() -> int:
         "shape": gemm_res["shape"],
         "library_call": "torch.mm(a, b, out_dtype=torch.float32)",
         "launches_in": "two apps/matrix_test runs (random, --ones), N 8192",
+    }, {
+        "name": "matmul_wmma",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/matmul.cu",
+        "replaces": "gaussianrenderer_tpu/ops/pallas/matmul.py:22",
+        "launches": gemm_res["launches"]["wmma"],
+        "max_abs_err": gemm_res["max_abs_err"]["wmma"],
+        "ms": gemm_res["wmma"]["ms"],
+        "plain_ms": gemm_res["wmma"]["plain_ms"],
+        "bound_ms": gemm_res["wmma"]["bound_ms"],
+        "bound_by": gemm_res["wmma"]["bound_by"],
+        "library_ms": gemm_res["wmma"]["library_ms"],
+        "shape": gemm_res["wmma"]["shape"],
+        "library_call": "torch.mm(a, b, out_dtype=torch.float32)",
+        "launches_in": f"one apps/matrix_test run at N {GEMM_ODD_N} (shapes TMA cannot take)",
+        "odd_small": gemm_res["wmma"]["odd_small"],
     }, {
         "name": "block_sort",
         "route": "cuda",

@@ -67,6 +67,7 @@ _SIGNATURES = {
     },
     "matmul": {
         "gr_matmul": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+        "gr_matmul_sm90": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "block_sort": {

@@ -46,6 +46,18 @@ def table_lookup_plain(
     return tab[torch.clamp(idx.to(torch.int64), 0, m - 1)]
 
 
+#: Bytes of each index type the kernel reads.
+_INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
+#: The kernel's library, once loaded (``_build.load`` takes a lock).
+_lib = None
+
+
+def _load():
+    global _lib
+    _lib = _build.load("lookup")
+    return _lib
+
+
 def table_lookup(
     table: torch.Tensor, idx: torch.Tensor, *, r: int = 128, q: int = 128
 ) -> torch.Tensor:
@@ -55,35 +67,42 @@ def table_lookup(
     here only that bound is kept), ``idx`` (N,) int32 or int64. CUDA
     tensors launch the kernel (counted in ``launches``); CPU tensors run
     :func:`table_lookup_plain`.
+
+    The CUDA path runs twice a culled frame, whose host side is its
+    bottleneck, so it keeps host work to the checks, one allocation and
+    one C call: the library is loaded once, and the current card (which
+    PyTorch caches, where the CUDA runtime's query costs microseconds)
+    and its stream are read raw; only tensors on another card than the
+    current one pay for a device switch.
     """
-    dev = table.device
-    if dev.type == "cpu":
-        return table_lookup_plain(table, idx, r=r, q=q)
-    if dev.type != "cuda":
-        raise ValueError(f"table_lookup: unsupported device {dev}")
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return table_lookup_plain(table, idx, r=r, q=q)
+        raise ValueError(f"table_lookup: unsupported device {table.device}")
     m = table.shape[0]
-    _check_view(m, r, q)
-    checks = [
-        (table.dtype == torch.float32 and table.dim() == 1, "table must be (M,) float32"),
-        (idx.dtype in (torch.int32, torch.int64) and idx.dim() == 1,
-         "idx must be (N,) int32 or int64"),
-        (idx.device == dev and table.is_contiguous() and idx.is_contiguous(),
-         "inputs must be contiguous and on one device"),
-    ]
-    for ok, msg in checks:
-        if not ok:
-            raise ValueError(f"table_lookup: {msg}")
-    lib = _build.load("lookup")
+    if not 0 < m <= r * q:
+        _check_view(m, r, q)
+    if table.dtype != torch.float32 or table.dim() != 1:
+        raise ValueError("table_lookup: table must be (M,) float32")
+    width = _INDEX_BYTES.get(idx.dtype)
+    if width is None or idx.dim() != 1:
+        raise ValueError("table_lookup: idx must be (N,) int32 or int64")
+    card = table.get_device()
+    if not (idx.is_cuda and idx.get_device() == card and table.is_contiguous()
+            and idx.is_contiguous()):
+        raise ValueError("table_lookup: inputs must be contiguous and on one device")
     n = idx.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    out = table.new_empty(n)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gr_table_lookup(
-            table.data_ptr(), m, idx.data_ptr(), idx.element_size(), n,
-            out.data_ptr(), stream,
-        )
+    lib = _lib or _load()
+    if torch._C._cuda_getDevice() == card:
+        rc = lib.gr_table_lookup(table.data_ptr(), m, idx.data_ptr(), width, n,
+                                 out.data_ptr(), torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            rc = lib.gr_table_lookup(table.data_ptr(), m, idx.data_ptr(), width, n,
+                                     out.data_ptr(), torch._C._cuda_getCurrentRawStream(card))
     if rc != 0:
         raise RuntimeError(
             "lookup kernel launch failed: "

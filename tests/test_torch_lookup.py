@@ -105,13 +105,19 @@ def test_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
     rng = np.random.default_rng(2)
-    for m in (3000, 43035):
+    # The table the kernel's shared memory holds at most (csrc/lookup.cu
+    # kMaxEntries), with r sized to view it.
+    m_max, r_max = 232448 // 2, 1024
+    for m, r in ((3000, 384), (43035, 384), (1, 128), (m_max, r_max)):
         table = torch.from_numpy(rng.uniform(0.1, 1e4, m).astype(np.float32)).cuda()
         for dtype in (torch.int32, torch.int64):
-            idx = torch.from_numpy(rng.integers(-9, m + 9, 100_000)).to(dtype).cuda()
-            before = gt.table_lookup.launches
-            got = gt.table_lookup(table, idx, r=384)
-            torch.cuda.synchronize()
-            assert gt.table_lookup.launches == before + 1
-            want = lookup.table_lookup_plain(table, idx, r=384)
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            full = torch.from_numpy(rng.integers(-9, m + 9, 100_008)).to(dtype).cuda()
+            # Aligned, with a tail past the last 16-byte vector, and views
+            # that start one element (4 or 8 bytes) past a 16-byte boundary.
+            for idx in (full[:100_000], full[:100_003], full[1:100_006], full[1:8]):
+                before = gt.table_lookup.launches
+                got = gt.table_lookup(table, idx, r=r)
+                torch.cuda.synchronize()
+                assert gt.table_lookup.launches == before + 1
+                want = lookup.table_lookup_plain(table, idx, r=r)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -83,14 +83,65 @@ def test_block_multiple_contract(shapes, blocks):
         gt.matmul_blocked(a, b.T)
 
 
+def _offset_view(rows, cols, elements):
+    """A contiguous bf16 (rows, cols) view that starts ``elements`` into
+    its storage."""
+    flat = torch.zeros(rows * cols + elements, dtype=torch.bfloat16)
+    return flat[elements:].view(rows, cols)
+
+
+# (A, B, kernel): TMA takes K and N multiples of 8 with 16-byte-aligned
+# bases; everything else goes to the wmma kernel.
+_DISPATCH = {
+    "8192_cube": (lambda: torch.empty((8192, 8192), dtype=torch.bfloat16),
+                  lambda: torch.empty((8192, 8192), dtype=torch.bfloat16), "sm90"),
+    "8192_k_8192_n_1024": (lambda: torch.empty((8192, 8192), dtype=torch.bfloat16),
+                           lambda: torch.empty((8192, 1024), dtype=torch.bfloat16), "sm90"),
+    "edge_264_136_328": (lambda: torch.empty((264, 136), dtype=torch.bfloat16),
+                         lambda: torch.empty((136, 328), dtype=torch.bfloat16), "sm90"),
+    "odd_37_13_29": (lambda: torch.empty((37, 13), dtype=torch.bfloat16),
+                     lambda: torch.empty((13, 29), dtype=torch.bfloat16), "wmma"),
+    "k_not_8": (lambda: torch.empty((64, 12), dtype=torch.bfloat16),
+                lambda: torch.empty((12, 64), dtype=torch.bfloat16), "wmma"),
+    "n_not_8": (lambda: torch.empty((64, 64), dtype=torch.bfloat16),
+                lambda: torch.empty((64, 60), dtype=torch.bfloat16), "wmma"),
+    "a_offset_2_bytes": (lambda: _offset_view(264, 136, 1),
+                         lambda: torch.empty((136, 328), dtype=torch.bfloat16), "wmma"),
+    "b_offset_8_bytes": (lambda: torch.empty((264, 136), dtype=torch.bfloat16),
+                         lambda: _offset_view(136, 328, 4), "wmma"),
+    "a_offset_16_bytes": (lambda: _offset_view(264, 136, 8),
+                          lambda: torch.empty((136, 328), dtype=torch.bfloat16), "sm90"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DISPATCH))
+def test_gemm_kernel_dispatch(case):
+    """Which kernel serves a product depends on shape and alignment alone."""
+    make_a, make_b, want = _DISPATCH[case]
+    a, b = make_a(), make_b()
+    assert a.is_contiguous() and b.is_contiguous()
+    assert matmul.gemm_kernel(a, b) == want
+
+
 def test_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
-    for m, k, n, blk in (*_CASES.values(), (37, 13, 29, 1)):
+    mm = gt.matmul_blocked
+    # (M, K, N, block, A's offset in elements): the last case's A starts
+    # 2 bytes off 16-byte alignment, which only the wmma kernel takes.
+    cases = [(*c, 0) for c in _CASES.values()] + [(37, 13, 29, 1, 0), (264, 136, 328, 8, 1)]
+    for m, k, n, blk, offset in cases:
         a, b = (t.cuda() for t in _bf16_pair(m, k, n, seed=k))
-        before = gt.matmul_blocked.launches
-        got = gt.matmul_blocked(a, b, bm=blk, bn=blk, bk=blk)
+        if offset:
+            a = torch.cat([a.flatten()[:offset], a.flatten()])[offset:].view(m, k)
+        kernel = matmul.gemm_kernel(a, b)
+        assert kernel == ("sm90" if k % 8 == n % 8 == 0 and a.data_ptr() % 16 == 0
+                          else "wmma")
+        before = (mm.launches, mm.launches_sm90, mm.launches_wmma)
+        got = mm(a, b, bm=blk, bn=blk, bk=blk)
         torch.cuda.synchronize()
-        assert gt.matmul_blocked.launches == before + 1
+        sm90 = int(kernel == "sm90")
+        assert (mm.launches, mm.launches_sm90, mm.launches_wmma) == (
+            before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
         want = matmul.matmul_blocked_plain(a, b, bm=blk, bn=blk, bk=blk)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
