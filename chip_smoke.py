@@ -51,10 +51,13 @@ its elapsed seconds:
                     — both training kernels against their plain versions
                       on every tile of the first training step's frame
                       below and of a heavy-overdraw case (16k large splats
-                      at 256×256): forward rgb and T within 1e-4, the
+                      at 256×256) on 32×32 and on 64×128 tiles (8192
+                      pixels): forward rgb and T within 1e-4, the
                       gradient per column within 1e-4 of the plain
                       version's largest, columns 9–15 and the lanes past
-                      the last tile exactly 0; kernel, plain and bound ms;
+                      the last tile exactly 0; kernel, plain and bound ms,
+                      each pass's device ms (torch.profiler) and the
+                      kernel launches of one call;
 9. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
@@ -1124,15 +1127,17 @@ def train_inputs(gt, params, camp, cfg):
     return sf, asg
 
 
-def heavy_overdraw_inputs(gt):
+def heavy_overdraw_inputs(gt, tiles=(0, 0)):
     """tests/test_train_kernel.py's heavy-overdraw case at 4× the splats
-    and 256×256 (tiles of over 20 chunks, saturation, the 0.99 clamp)."""
+    and 256×256 (tiles of over 20 chunks, saturation, the 0.99 clamp), on
+    auto 32×32 tiles or a ``tiles`` = (x, y) grid of them."""
     import torch
 
     scene = gt.make_random_scene(16000, seed=11, extent=0.8, scale_range=(0.2, 0.6),
                                  device=DEVICE)
     scene = scene._replace(opacity=torch.clamp(scene.opacity * 4.0, 0.0, 1.0))
-    cfg = gt.RenderConfig(height=256, width=256, compositor="diff")
+    cfg = gt.RenderConfig(height=256, width=256, num_tile_x=tiles[0], num_tile_y=tiles[1],
+                          compositor="diff")
     camp = look_camera(gt, (0.0, 0.0, 2.5), 1.0, fov=70.0).params(3.0, device=DEVICE)
     sf, asg = train_inputs(gt, gt.SceneParams.from_scene(scene), camp, cfg)
     check(int(asg.tile_count.max()) > 20 * cfg.chunk_size,
@@ -1294,24 +1299,67 @@ def compare_train(torch, name, sf, asg, cfg):
             (stats_k, chk_k, off, n_chk, gout, stats_p, chk_p))
 
 
+def pass_ms(torch, fn, reps=5):
+    """Device ms of one ``fn()`` by kernel (torch.profiler, summed over
+    ``reps`` calls, over ``reps``), by the kernel's name without its
+    namespaces and arguments; empty if the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].split("::")[-1]
+            by_name[name] = by_name.get(name, 0.0) + (
+                e.self_cuda_time_total if us is None else us) / 1e3 / reps
+    return by_name
+
+
+def launches_per_call(torch, fn, counter):
+    """Kernel launches one ``fn()`` makes, read off ``counter.kernel_launches``."""
+    before = counter.kernel_launches
+    fn()
+    torch.cuda.synchronize()
+    return counter.kernel_launches - before
+
+
 def phase_train_kernel_vs_plain(torch, gt, frame):
     """The train kernels against their plain versions: the train-500k
     frame's first step (pose 0, perturbed params) and the heavy-overdraw
-    case; then the kernels' and plain versions' times on the former."""
+    case on 32×32 and on 64×128 tiles (8192 pixels); then, on the former,
+    the kernels' and plain versions' times, each pass's device time and
+    the kernel launches of one call."""
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     sf, asg, cfg = frame
     fwd_err, bwd_err, (stats, chk, off, n_chk, gout, stats_p, chk_p) = compare_train(
         torch, f"trained_500k {cfg.width}x{cfg.height}, first step", sf, asg, cfg)
-    heavy = heavy_overdraw_inputs(gt)
-    h_fwd, h_bwd, _ = compare_train(
-        torch, f"heavy overdraw {heavy[2].width}x{heavy[2].height}", *heavy)
+    errs = [(fwd_err, bwd_err)]
+    for tiles in ((0, 0), (4, 2)):
+        heavy = heavy_overdraw_inputs(gt, tiles)
+        hc = heavy[2]
+        errs.append(compare_train(
+            torch, f"heavy overdraw {hc.width}x{hc.height}, {hc.tile_w}x{hc.tile_h} tiles",
+            *heavy)[:2])
+        del heavy
     kw = train_kw(cfg)
     args = (sf, asg.tile_start, asg.tile_count, off)
+    fwd = lambda: tt.train_forward(*args, n_chk, **kw)  # noqa: E731
+    bwd = lambda: tt.train_backward(*args, gout, stats, chk, **kw)  # noqa: E731
+    per_call = {"fwd": launches_per_call(torch, fwd, tt.train_forward),
+                "bwd": launches_per_call(torch, bwd, tt.train_backward)}
+    passes = {"fwd": pass_ms(torch, fwd), "bwd": pass_ms(torch, bwd)}
     times = {
-        "fwd_ms": cuda_ms(torch, lambda: tt.train_forward(*args, n_chk, **kw), 10),
-        "bwd_ms": cuda_ms(torch, lambda: tt.train_backward(*args, gout, stats, chk, **kw),
-                          10),
+        "fwd_ms": cuda_ms(torch, fwd, 10),
+        "bwd_ms": cuda_ms(torch, bwd, 10),
         "fwd_plain_ms": cuda_ms(torch, lambda: tt.train_forward_plain(*args, n_chk, **kw),
                                 1),
         "bwd_plain_ms": cuda_ms(torch, lambda: tt.train_backward_plain(
@@ -1324,8 +1372,10 @@ def phase_train_kernel_vs_plain(torch, gt, frame):
         **times, "fwd_bound_ms": fb_ms, "fwd_bound_by": fb_by, "bwd_bound_ms": bb_ms,
         "bwd_bound_by": bb_by, **{f"pairs_{key}": v for key, v in pairs.items()},
         "instances": int(asg.total_instances), "checkpoint_rows": n_chk,
-        "fwd_max_abs_err": max(fwd_err, h_fwd), "bwd_max_abs_err": max(bwd_err[0], h_bwd[0]),
-        "bwd_max_rel_err": max(bwd_err[1], h_bwd[1]),
+        "kernel_launches_per_call": per_call, "pass_device_ms": passes,
+        "fwd_max_abs_err": max(f for f, _ in errs),
+        "bwd_max_abs_err": max(b[0] for _, b in errs),
+        "bwd_max_rel_err": max(b[1] for _, b in errs),
     }}
     out(res)
     return res["train_kernel_times"]
@@ -1369,6 +1419,7 @@ def phase_train(torch, gt, scene, card):
     params, state = params0, opt.init(params0)
     losses, step_ms = [], []
     tt.train_forward.launches = tt.train_backward.launches = 0
+    tt.train_forward.kernel_launches = tt.train_backward.kernel_launches = 0
     for s in range(TRAIN_STEPS):
         i = s % TRAIN_POSES
         (params, state, loss), ms = host_ms(
@@ -1377,12 +1428,16 @@ def phase_train(torch, gt, scene, card):
         step_ms.append(ms)
     launches = {"tile_train_fwd": tt.train_forward.launches,
                 "tile_train_bwd": tt.train_backward.launches}
+    kernel_launches = {"tile_train_fwd": tt.train_forward.kernel_launches,
+                       "tile_train_bwd": tt.train_backward.kernel_launches}
 
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     check(all(math.isfinite(v) for v in losses), f"train-500k: non-finite loss {losses}")
     check(last < first, f"train-500k: loss did not fall ({first:.5g} → {last:.5g})")
     check(launches == {"tile_train_fwd": TRAIN_STEPS, "tile_train_bwd": TRAIN_STEPS},
-          f"train-500k: kernel launches {launches} in {TRAIN_STEPS} steps")
+          f"train-500k: kernel calls {launches} in {TRAIN_STEPS} steps")
+    check(all(kernel_launches[k] >= TRAIN_STEPS for k in launches),
+          f"train-500k: kernel launches {kernel_launches} in {TRAIN_STEPS} steps")
     # The file holds a few splats with NaN parameters (never valid, zero
     # gradient): every parameter that was finite must stay finite.
     check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
@@ -1475,6 +1530,7 @@ def phase_train(torch, gt, scene, card):
         "stage_ms": stages,
         "kernel_launches": launches,
         "kernel_launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "kernels_launched_by_the_calls": kernel_launches,
         "psnr_db_before": psnr_before, "psnr_db_after": psnr_after,
         "card": card,
     }
@@ -1968,6 +2024,10 @@ def main() -> int:
         "source": "gaussianrenderer_tpu_torch/csrc/tile_train.cu",
         "replaces": f"gaussianrenderer_tpu/ops/pallas/tile_train.py:{line}",
         "launches": train_res["kernel_launches"][f"tile_train_{kind}"],
+        "launches_counted": "calls; each launches the kernel's passes",
+        "kernels_launched": train_res["kernels_launched_by_the_calls"][f"tile_train_{kind}"],
+        "kernel_launches_per_call": train_times["kernel_launches_per_call"][kind],
+        "pass_device_ms": train_times["pass_device_ms"][kind],
         "max_abs_err": train_times[f"{kind}_max_abs_err"],
         "ms": train_times[f"{kind}_ms"],
         "plain_ms": train_times[f"{kind}_plain_ms"],

@@ -57,12 +57,8 @@ _SIGNATURES = {
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "tile_train": {
-        "gr_train_forward": (
-            _c_int, [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p],
-        ),
-        "gr_train_backward": (
-            _c_int, [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p],
-        ),
+        # (pass id, &GrTrainArgs, stream)
+        "gr_train_pass": (_c_int, [_c_int, _c_void_p, _c_void_p]),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "matmul": {

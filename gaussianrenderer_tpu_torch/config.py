@@ -61,11 +61,9 @@ class RenderConfig:
     #: many chunks per tile; the training kernels do not truncate.
     diff_max_chunks: int = 32
     #: "diff" takes the training kernels (ops/tile_train.py) when the tile
-    #: is a multiple of 128 pixels and no depth row is asked for; False
-    #: (or otherwise) takes the scan compositor. On the card the kernels
-    #: also need at most 4096 pixels a tile (64×64) and raise ValueError
-    #: past it, where the JAX package's kernel takes any multiple of 128:
-    #: larger tiles need diff_kernel=False there.
+    #: is a multiple of 128 pixels, as the JAX package's kernel does, and
+    #: no depth row is asked for; False (or otherwise) takes the scan
+    #: compositor.
     diff_kernel: bool = True
     #: Kept for the JAX package's signature and not read there or here:
     #: the sort key spends the bits the tile id leaves on depth.

@@ -27,9 +27,9 @@ from gaussianrenderer_tpu_torch.ops.cuda.tile_train import (  # noqa: F401
 
 def train_kernel_compatible(tile_w: int, tile_h: int) -> bool:
     """Tiles the train kernels take: a pixel count that is a multiple of
-    128, as in the JAX package. The CUDA kernels also need it ≤ 4096 and
-    raise ValueError past it (a thread owns at most 16 pixels of a
-    256-thread block); the plain versions on the CPU take any size."""
+    128, as in the JAX package (the CUDA kernels walk a tile's pixels in
+    groups, so any such count; the plain versions on the CPU take any
+    size)."""
     return (tile_w * tile_h) % 128 == 0
 
 
