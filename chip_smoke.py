@@ -14,9 +14,14 @@ its elapsed seconds:
 4. kernel-vs-plain  — each kernel against its plain PyTorch version on the
                       card: the compositor, without and with its saturation
                       census (``with_sat``), on three 800×600 packed frames
-                      (plain rgb; alpha + depth + background; wide splats)
-                      and 32 tiles of the 3M-splat 1080p frame (the 16 with
-                      the most instances, 16 seeded random); the table
+                      (plain rgb; alpha + depth + background; wide splats),
+                      a dense 768×512 frame on 64×128 tiles (without and
+                      with an alpha row) and on 128×128 tiles with the
+                      census (64 blocks), chunks walked equal, and that
+                      64×128 grid through ``render_frame``; and 32 tiles
+                      of the 3M-splat 1080p frame (the 16 with the most
+                      instances, 16 seeded random) without and with an
+                      alpha row, chunks walked equal; the table
                       lookup, bit for bit, on the inputs the culled 3M
                       frames give it (the pyramid of frame 1's cutoff
                       image sampled by all 3M splats; frame 2's candidate
@@ -34,7 +39,10 @@ its elapsed seconds:
                       3M splats at 1920×1080 (bench camera) and
                       data/trained_500k.ply at 1920×1080; counts beside
                       the JAX package's recorded ones, median frame, stage
-                      and kernel times, and the kernel's launch count;
+                      and kernel times, and the kernel's launch count; the
+                      compositor's bound from the pairs the plain version
+                      counts before each pixel's stop, beside the bound
+                      that charged every walked pair (both pair counts);
                       a torch.profiler pass over the 3M frame (device busy
                       share, device time by kernel and by PyTorch op);
 7. session-3m, session-trained-500k
@@ -85,11 +93,12 @@ its elapsed seconds:
                       launches per kernel;
 12. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
-                      launch; the kernel bit-equal to its plain version on
-                      all 9 rows for random u32 keys (half ≥ 2³¹) and
-                      tie-heavy keys at runs 256, 2048, 4096 and 16384;
-                      kernel, plain and library (torch.sort of the key
-                      view + one gather) ms beside the bound;
+                      kernel launch; the kernels bit-equal to their plain
+                      version on all 9 rows for random u32 keys (half ≥
+                      2³¹) and tie-heavy keys at runs 256 to 65536 (C
+                      rounded up to a multiple of the run); kernel, plain
+                      and library (torch.sort of the key view + one
+                      gather) ms beside the bound, kernel launches a call;
 13. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
@@ -143,6 +152,12 @@ PEAK_HBM_BYTES = 3.35e12
 OPS_BOX_TEST = 2
 OPS_IN_BOX = OPS_BOX_TEST + 31 + 10
 OPS_DEPTH = 2
+#: A pixel past its stop (T < 1e-3) needs nothing more, unless the frame
+#: has an alpha row: then each lane whose AABB holds it still updates its
+#: T (box 2, offsets 2, quadratic 7, exponent argument 2, fast_exp 18,
+#: clamp 1, alpha test 1, T update 2), and every other lane costs it the
+#: box test.
+OPS_T_ONLY = OPS_BOX_TEST + 31 + 2
 #: Bytes of one packed instance record (5 u32 rows).
 RECORD_BYTES = 20
 
@@ -226,8 +241,10 @@ GEMM_ODD_N, GEMM_ODD_BLOCK = 1001, 7
 #: 5,585,012 instances rounded up to the default run of 2048.
 BLOCK_SORT_C = 5_586_944
 #: Runs held against the plain version: the smallest, the default, twice
-#: the default, the kernel's largest.
-BLOCK_SORT_RUNS = (256, 2048, 4096, 16384)
+#: the default, the largest one block sorts alone, and three that take
+#: global passes. A run that does not divide BLOCK_SORT_C takes C rounded
+#: up to its multiple.
+BLOCK_SORT_RUNS = (256, 2048, 4096, 8192, 16384, 32768, 65536)
 #: Operations per compare-exchange pair and substage: one compare, and a
 #: select for each of the 9 rows of both outputs.
 OPS_COMPARE_EXCHANGE = 19
@@ -457,18 +474,64 @@ def cuda_ms_turns(torch, fns, reps):
     return [statistics.median(t) for t in times]
 
 
-def compositor_bound_ms(torch, inst, cfg, walked, nc):
-    """Least time for this frame's compositor work on an H100: the larger
-    of the operations the walked lanes need over the fp32 peak and the
-    bytes the function must move (records, depth row and ranges in,
-    framebuffer out) over the HBM peak.
+def compositor_pairs(torch, inst, cfg, out_alpha, depth_row=None):
+    """The (in-image pixel, walked lane) pairs of this frame, counted by
+    the plain compositor on the card over every tile: inside the lane's
+    AABB before the pixel's stop (T before the lane ≥ 1e-3), outside it
+    before the stop, inside after the stop, outside after the stop."""
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
+        composite_tiles_packed_plain,
+    )
 
-    Operations count what this frame's data needs: each walked lane (up
-    to its tile's early exit, ``walked`` chunks) costs ``OPS_IN_BOX`` for
-    each in-image pixel of its tile inside its u8 AABB and
-    ``OPS_BOX_TEST`` for every other in-image pixel; pixels past the image
-    edge cost nothing. Returns (ms, "operations" | "bytes", pairs walked,
-    pairs inside an AABB)."""
+    counts = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+    composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, depth_row=depth_row,
+        pair_counts=counts, **comp_kwargs(cfg, out_alpha),
+    )
+    keys = ("live_in_aabb", "live_outside_aabb", "stopped_in_aabb",
+            "stopped_outside_aabb")
+    return dict(zip(keys, (int(v) for v in counts.tolist())))
+
+
+def compositor_bytes_s(inst, cfg, nc, depth):
+    """Seconds at the HBM peak for the bytes the function must move:
+    records, depth row and ranges in, framebuffer out."""
+    n_lanes = inst.packed_feats.shape[1]
+    n_bytes = (n_lanes * (RECORD_BYTES + (4 if depth else 0)) + 8 * cfg.num_tiles
+               + 4 * nc * cfg.height * cfg.width)
+    return n_bytes / PEAK_HBM_BYTES
+
+
+def compositor_bound_ms(pairs, inst, cfg, nc, out_alpha, depth=False):
+    """Least time for this frame's compositor work on an H100: the larger
+    of the operations the function needs over the fp32 peak and the bytes
+    it must move over the HBM peak.
+
+    ``pairs`` is :func:`compositor_pairs`'s count. A live pair inside the
+    lane's AABB costs ``OPS_IN_BOX`` (+ ``OPS_DEPTH`` with a depth row), a
+    live pair outside it ``OPS_BOX_TEST``; a pixel past its stop costs
+    nothing more, except with an alpha row (``out_alpha``), where it
+    still updates T (``OPS_T_ONLY`` inside an AABB, the box test outside).
+    Returns (ms, "operations" | "bytes")."""
+    ops = (pairs["live_in_aabb"] * (OPS_IN_BOX + (OPS_DEPTH if depth else 0))
+           + pairs["live_outside_aabb"] * OPS_BOX_TEST)
+    if out_alpha:
+        ops += (pairs["stopped_in_aabb"] * OPS_T_ONLY
+                + pairs["stopped_outside_aabb"] * OPS_BOX_TEST)
+    ops_s = ops / PEAK_FP32_FLOPS
+    bytes_s = compositor_bytes_s(inst, cfg, nc, depth)
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def compositor_bound_all_pairs_ms(torch, inst, cfg, walked, nc):
+    """The bound as PRs 4–9 counted it, printed beside the one above for
+    comparison: every walked lane (up to its tile's exit, ``walked``
+    chunks) costs ``OPS_IN_BOX`` for each in-image pixel of its tile
+    inside its u8 AABB, stopped or not, and ``OPS_BOX_TEST`` for every
+    other in-image pixel. Returns (ms, "operations" | "bytes", pairs
+    walked, pairs inside an AABB)."""
     k = cfg.packed_chunk
     i64 = torch.int64
     dev = inst.tile_count.device
@@ -491,18 +554,27 @@ def compositor_bound_ms(torch, inst, cfg, walked, nc):
     pairs = int((sx * sy).sum())
     in_box = int((nx * ny).sum())
     ops_in = OPS_IN_BOX + (OPS_DEPTH if inst.depth_f32 is not None else 0)
-    ops = in_box * ops_in + (pairs - in_box) * OPS_BOX_TEST
-    ops_s = ops / PEAK_FP32_FLOPS
-    n_lanes = inst.packed_feats.shape[1]
-    n_bytes = (
-        n_lanes * (RECORD_BYTES + (4 if inst.depth_f32 is not None else 0))
-        + 8 * cfg.num_tiles
-        + 4 * nc * cfg.height * cfg.width
-    )
-    bytes_s = n_bytes / PEAK_HBM_BYTES
+    ops_s = (in_box * ops_in + (pairs - in_box) * OPS_BOX_TEST) / PEAK_FP32_FLOPS
+    bytes_s = compositor_bytes_s(inst, cfg, nc, inst.depth_f32 is not None)
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations", pairs, in_box
     return bytes_s * 1e3, "bytes", pairs, in_box
+
+
+def compositor_bounds(torch, inst, cfg, walked):
+    """Both bounds of an rgb frame without an alpha row, their pair counts,
+    and a check that the two counts agree on the pairs they share."""
+    pairs = compositor_pairs(torch, inst, cfg, False)
+    bound_ms, bound_by = compositor_bound_ms(pairs, inst, cfg, 3, False)
+    old_ms, old_by, walked_pairs, in_box = compositor_bound_all_pairs_ms(
+        torch, inst, cfg, walked, 3)
+    check(sum(pairs.values()) == walked_pairs
+          and pairs["live_in_aabb"] + pairs["stopped_in_aabb"] == in_box,
+          f"compositor pair counts {pairs} disagree with {walked_pairs} walked, "
+          f"{in_box} in an AABB")
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs,
+            "bound_ms_all_walked_pairs": old_ms, "bound_by_all_walked_pairs": old_by,
+            "pairs_walked": walked_pairs, "pairs_in_aabb": in_box}
 
 
 # -------------------------------------------------------------------- phases
@@ -552,7 +624,51 @@ def phase_kernel_vs_plain(torch, gt, big):
                                    ("depth",)))
         check_sat(torch, f"{name} with_sat", k_sat, p_sat)
 
-    # 32 tiles of the full 1080p frame: the 16 heaviest and 16 random.
+    # Tiles of more than 1024 pixels: 64×128 (8192 pixels) with and without
+    # an alpha row, and 128×128 with the census (64 blocks) with and
+    # without one (without, as the culled session calls it: groups of 32
+    # rectangles with their state in the scratch, stopped groups skipped),
+    # on a dense overdraw frame; then the 64×128 grid through render_frame.
+    dense = gt.make_random_scene(30000, seed=0, extent=2.0, scale_range=(0.02, 0.08),
+                                 device=DEVICE)
+    cam_d = look_camera(gt, (0.0, 0.0, 2.5), 768 / 512)
+    for name, grid, out_alpha, with_sat in (
+        ("768x512 64x128 tiles", (12, 4), False, False),
+        ("768x512 64x128 tiles alpha", (12, 4), True, False),
+        ("768x512 128x128 tiles with_sat", (6, 4), False, True),
+        ("768x512 128x128 tiles with_sat alpha", (6, 4), True, True),
+    ):
+        cfg = gt.RenderConfig(height=512, width=768, num_tile_x=grid[0],
+                              num_tile_y=grid[1])
+        check(cfg.packed_compatible, f"{name}: not packed_compatible")
+        inst = packed_frame(gt, dense, cam_d, cfg, False)
+        rows = ("r", "g", "b", "alpha")[:3 + out_alpha]
+        walked = []
+        outs = []
+        for fn in (gt.composite_tiles_packed, composite_tiles_packed_plain):
+            walked.append(torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE))
+            outs.append(fn(inst.packed_feats, inst.tile_start, inst.tile_count,
+                           chunks_walked=walked[-1], with_sat=with_sat,
+                           **comp_kwargs(cfg, out_alpha)))
+        if with_sat:
+            (k_out, k_sat), (p_out, p_sat) = outs
+            check_sat(torch, name, k_sat, p_sat)
+        else:
+            k_out, p_out = outs
+        worst = max(worst, compare(torch, name, k_out, p_out, rows))
+        check_walked(torch, name, walked[0], walked[1])
+    cfg = gt.RenderConfig(height=512, width=768, num_tile_x=12, num_tile_y=4)
+    gt.composite_tiles_packed.launches = 0
+    fb, _ = gt.render_frame(dense, cam_d.params(cfg.k_sigma, device=DEVICE), cfg)
+    torch.cuda.synchronize()
+    check(gt.composite_tiles_packed.launches == 1 and fb.shape == (3, 512, 768)
+          and bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+          "render_frame on 64x128 tiles did not render through the kernel")
+    out({"case": "render_frame 768x512 on 64x128 tiles", "kernel_launches": 1,
+         "image_mean": float(fb.mean())})
+
+    # 32 tiles of the full 1080p frame, the 16 heaviest and 16 random,
+    # without and with an alpha row (the dead-warp stop runs only without).
     scene3m, cam3m, cfg3m = big
     inst = packed_frame(gt, scene3m, cam3m, cfg3m, False)
     heavy = torch.topk(inst.tile_count, 16).indices.tolist()
@@ -560,22 +676,30 @@ def phase_kernel_vs_plain(torch, gt, big):
     rest = [t for t in torch.randperm(cfg3m.num_tiles, generator=gen).tolist()
             if t not in heavy][:16]
     tiles = heavy + rest
-    kw = comp_kwargs(cfg3m, False)
-    k_full = gt.composite_tiles_packed(
-        inst.packed_feats, inst.tile_start, inst.tile_count, **kw
-    )
-    k_tiles = tile_blocks(k_full, tiles, tiles_x=cfg3m.tiles_x,
-                          tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
-    p_tiles = composite_tiles_packed_plain(
-        inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles, **kw
-    )
+    sel = torch.as_tensor(tiles, device=DEVICE)
+    geo = dict(tiles_x=cfg3m.tiles_x, tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
     # Plain blocks include pixels past the image edge; the kernel writes
     # only in-image pixels, which tile_blocks pads with zeros.
-    in_img = tile_blocks(torch.ones_like(k_full[:1]), tiles, tiles_x=cfg3m.tiles_x,
-                         tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
-    worst = max(worst, compare(
-        torch, "1080p 3M: 32 tiles", k_tiles, p_tiles * in_img, ("r", "g", "b")
-    ))
+    in_img = tile_blocks(torch.ones((1, cfg3m.height, cfg3m.width), device=DEVICE),
+                         tiles, **geo)
+    for out_alpha in (False, True):
+        name = "1080p 3M: 32 tiles" + (" alpha" if out_alpha else "")
+        kw = comp_kwargs(cfg3m, out_alpha)
+        rows = ("r", "g", "b", "alpha")[:3 + out_alpha]
+        k_walked = torch.zeros(cfg3m.num_tiles, dtype=torch.int32, device=DEVICE)
+        p_walked = torch.zeros_like(k_walked)
+        k_full = gt.composite_tiles_packed(
+            inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=k_walked,
+            **kw
+        )
+        p_tiles = composite_tiles_packed_plain(
+            inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles,
+            chunks_walked=p_walked, **kw
+        )
+        worst = max(worst, compare(torch, name, tile_blocks(k_full, tiles, **geo),
+                                   p_tiles * in_img, rows))
+        check_walked(torch, name, k_walked[sel], p_walked[sel])
+    kw = comp_kwargs(cfg3m, False)
     k_full, k_sat = gt.composite_tiles_packed(
         inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True, **kw
     )
@@ -583,15 +707,21 @@ def phase_kernel_vs_plain(torch, gt, big):
         inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles,
         with_sat=True, **kw
     )
-    k_tiles = tile_blocks(k_full, tiles, tiles_x=cfg3m.tiles_x,
-                          tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
-    worst = max(worst, compare(torch, "1080p 3M: 32 tiles with_sat", k_tiles,
-                               p_tiles * in_img, ("r", "g", "b")))
+    worst = max(worst, compare(torch, "1080p 3M: 32 tiles with_sat",
+                               tile_blocks(k_full, tiles, **geo), p_tiles * in_img,
+                               ("r", "g", "b")))
     n_blk = k_sat.numel() // cfg3m.num_tiles
-    sel = torch.as_tensor(tiles, device=DEVICE)
     check_sat(torch, "1080p 3M: 32 tiles with_sat",
               k_sat.view(cfg3m.num_tiles, n_blk)[sel].reshape(-1), p_sat)
     return worst, inst, tiles
+
+
+def check_walked(torch, name, k_walked, p_walked):
+    """Chunks walked by the kernel and the plain version, equal on every tile."""
+    diff = int((k_walked != p_walked).sum())
+    out({"case": name, "tiles": k_walked.numel(), "chunks_walked_differing": diff,
+         "chunks_walked_max": int(k_walked.max())})
+    check(diff == 0, f"{name}: chunks_walked differs on {diff} tiles")
 
 
 def check_sat(torch, name, k_sat, p_sat):
@@ -782,7 +912,8 @@ def phase_goldens(torch, gt):
 
 def phase_full(torch, gt, label, setup, card, frames=10):
     """The main path at full width: render_frame on one scene, counts,
-    frame and kernel times, kernel launches on the timed run."""
+    frame and kernel times, kernel launches on the timed run; the
+    compositor's bound."""
     import numpy as np
 
     comp = gt.composite_tiles_packed
@@ -825,9 +956,7 @@ def phase_full(torch, gt, label, setup, card, frames=10):
          chunks_walked=walked, **kw)
     kernel_ms = cuda_ms(torch, lambda: comp(
         inst.packed_feats, inst.tile_start, inst.tile_count, **kw), frames)
-    bound_ms, bound_by, pairs, in_box = compositor_bound_ms(
-        torch, inst, cfg, walked, 3
-    )
+    bounds = compositor_bounds(torch, inst, cfg, walked)
     counts = {"num_instances": int(stats.num_instances),
               "num_culled": int(stats.num_culled)}
     res = {
@@ -846,10 +975,7 @@ def phase_full(torch, gt, label, setup, card, frames=10):
         "preprocess_ms_median": preprocess_ms,
         "emission_sort_ms_median": emission_ms,
         "kernel_launches": launches,
-        "pairs_walked": pairs,
-        "pairs_in_aabb": in_box,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **bounds,
         "card": card,
     }
     out(res)
@@ -1019,7 +1145,7 @@ def phase_session(torch, gt, label, setup, card, frames=10):
                       **kw)
     walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
     comp(inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=walked, **kw)
-    bound_ms, bound_by, _, _ = compositor_bound_ms(torch, inst, cfg, walked, 3)
+    bounds = compositor_bounds(torch, inst, cfg, walked)
     sy, sx = satcull.sat_grid(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h)
     eff = satcull.dilate_cutoff(cut1, scfg.sat_dilate)
     table = satcull.build_pyramid(eff)
@@ -1071,8 +1197,9 @@ def phase_session(torch, gt, label, setup, card, frames=10):
         },
         "orbit_5deg_psnr_db_vs_unculled_ungated": psnr5,
         "culled_frame_stage_ms": stages,
-        "culled_frame_compositor_bound_ms": bound_ms,
-        "culled_frame_compositor_bound_by": bound_by,
+        "culled_frame_compositor_bound_ms": bounds["bound_ms"],
+        "culled_frame_compositor_bound_by": bounds["bound_by"],
+        "culled_frame_compositor_bounds": bounds,
         "kernel_launches": launches,
         "kernel_launches_per_frame": {k: v / n_frames for k, v in launches.items()},
         "card": card,
@@ -1788,31 +1915,23 @@ def sort_matrix(torch, c, key_hi, seed):
 def phase_block_sort(torch, gt, card, c=BLOCK_SORT_C):
     """The block sort's path, ``block_sort_runs`` itself (no app calls it,
     as in the JAX package), at bench_3m's instance count rounded up to the
-    run: one call at the default run, launches counted; then the kernel
-    bit-equal to its plain version on all 9 rows for random and tie-heavy
-    keys at every tested run; kernel, plain and library times."""
+    run: one call at the default run, launches counted; then the kernels
+    bit-equal to their plain version on all 9 rows for random and
+    tie-heavy keys at every tested run; kernel, plain and library times
+    and the kernels one call launches."""
     from gaussianrenderer_tpu_torch.ops.cuda.block_sort import block_sort_runs_plain
 
     bs = gt.block_sort_runs
     x = sort_matrix(torch, c, 2**32, seed=0)
-    bs.launches = 0
+    bs.launches = bs.kernel_launches = 0
     y = bs(x)
     torch.cuda.synchronize()
-    launches = bs.launches
-    check(launches == 1, f"block sort: {launches} launches for one call")
+    launches, kernel_launches = bs.launches, bs.kernel_launches
+    check(launches == 1 and kernel_launches == 1,
+          f"block sort: {launches} calls, {kernel_launches} kernels for one call")
     keys = y[0].view(c // 2048, 2048)
     check(bool((keys[:, 1:] >= keys[:, :-1]).all()), "block sort: a run is not sorted")
     check(int(x[0].max()) >= 2**31, "block sort: no key with the top bit set")
-
-    for run in BLOCK_SORT_RUNS:
-        for kind, key_hi in (("random u32", 2**32), ("tie-heavy, keys in [0, 16)", 16)):
-            xi = x if (run, key_hi) == (2048, 2**32) else sort_matrix(torch, c, key_hi, run)
-            got, want = bs(xi, run=run), block_sort_runs_plain(xi, run=run)
-            differ = int((got != want).sum())
-            out({"case": f"block sort run {run}, {kind}", "c": c,
-                 "elements_differing": differ,
-                 "max_abs": float((got - want).abs().max())})
-            check(differ == 0, f"block sort run {run} {kind}: {differ} elements differ")
 
     def library(xi, run):
         kv, perm = torch.sort(xi[0].view(-1, run), dim=1)
@@ -1821,18 +1940,37 @@ def phase_block_sort(torch, gt, card, c=BLOCK_SORT_C):
 
     times = {}
     for run in BLOCK_SORT_RUNS:
-        bound_ms, bound_by, substages = block_sort_bound_ms(c, run)
+        c_run = -(-c // run) * run
+        xr = x if c_run == c else sort_matrix(torch, c_run, 2**32, seed=run + 1)
+        for kind, key_hi in (("random u32", 2**32), ("tie-heavy, keys in [0, 16)", 16)):
+            xi = xr if key_hi == 2**32 else sort_matrix(torch, c_run, key_hi, run)
+            got, want = bs(xi, run=run), block_sort_runs_plain(xi, run=run)
+            differ = int((got != want).sum())
+            out({"case": f"block sort run {run}, {kind}", "c": c_run,
+                 "elements_differing": differ,
+                 "max_abs": float((got - want).abs().max())})
+            check(differ == 0, f"block sort run {run} {kind}: {differ} elements differ")
+            del got, want
+        before = bs.kernel_launches
+        bs(xr, run=run)
+        per_call = bs.kernel_launches - before
+        bound_ms, bound_by, substages = block_sort_bound_ms(c_run, run)
         times[run] = {
-            "ms": cuda_ms(torch, lambda: bs(x, run=run), 10),
-            "plain_ms": cuda_ms(torch, lambda: block_sort_runs_plain(x, run=run), 2),
-            "library_ms": cuda_ms(torch, lambda: library(x, run), 10),
+            "c": c_run,
+            "ms": cuda_ms(torch, lambda: bs(xr, run=run), 10),
+            "plain_ms": cuda_ms(torch, lambda: block_sort_runs_plain(xr, run=run), 2),
+            "library_ms": cuda_ms(torch, lambda: library(xr, run), 10),
             "bound_ms": bound_ms, "bound_by": bound_by, "substages": substages,
+            "kernel_launches_per_call": per_call,
         }
+        del xr
+        torch.cuda.empty_cache()
     res = {"block_sort_times": {
         "c": c, "shape": f"(9, {c}) u32 as int64, random keys",
         "library_call": "torch.sort along dim 1 of the (C/run, run) key view + "
                         "one torch.gather of the 8 payload rows",
-        "runs": times, "launches": launches, "card": card}}
+        "runs": times, "launches": launches, "kernel_launches": kernel_launches,
+        "card": card}}
     out(res)
     return res["block_sort_times"]
 
@@ -1988,13 +2126,16 @@ def main() -> int:
         "bound_ms": res3m["bound_ms"],
         "bound_by": res3m["bound_by"],
         "library_ms": None,
+        "bound_ms_all_walked_pairs": res3m["bound_ms_all_walked_pairs"],
+        "pairs": res3m["pairs"],
         "shape": "3M splats, 1920x1080, 32x32 tiles, chunk 256",
         "plain_scope": f"{len(tiles)} tiles of that frame (no yardstick)",
         "kernel_ms_same_tiles": kernel_tiles_ms,
         "trained_500k": {"ms": res500["kernel_ms_median"],
                          "launches": res500["kernel_launches"],
                          "bound_ms": res500["bound_ms"],
-                         "bound_by": res500["bound_by"]},
+                         "bound_by": res500["bound_by"],
+                         "bound_ms_all_walked_pairs": res500["bound_ms_all_walked_pairs"]},
         "culled_frame_with_sat_ms": sess3m["culled_frame_stage_ms"]["compositor_with_sat"],
         "culled_frame_plain_ms": sess3m["culled_frame_stage_ms"]["compositor_plain"],
         "session_launches": sess3m["kernel_launches"]["tile_render2"],
@@ -2086,6 +2227,11 @@ def main() -> int:
         "library_call": sort_res["library_call"],
         "launches_in": ("one block_sort_runs call (not wired into a render or "
                         "training path, as in the JAX package)"),
+        "kernel_launches": sort_res["kernel_launches"],
+        "kernel_launches_per_call": {run: t["kernel_launches_per_call"]
+                                     for run, t in sort_res["runs"].items()},
+        "runs": {run: {k: t[k] for k in ("c", "ms", "library_ms", "bound_ms")}
+                 for run, t in sort_res["runs"].items()},
     }]})
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     out(card_line())

@@ -43,9 +43,10 @@ _SIGNATURES = {
     "tile_render2": {
         "gr_tile_render2": (
             _c_int,
-            [_c_void_p, ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p,
-             _c_void_p, _c_void_p, _c_void_p] + [_c_int] * 9 + [_c_void_p],
+            [_c_void_p, ctypes.c_longlong] + [_c_void_p] * 7 + [_c_int] * 9
+            + [_c_void_p],
         ),
+        "gr_tile_render2_state_floats": (ctypes.c_longlong, [_c_int] * 5),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "lookup": {
@@ -68,7 +69,9 @@ _SIGNATURES = {
     },
     "block_sort": {
         "gr_block_sort": (
-            _c_int, [_c_void_p, _c_void_p, ctypes.c_longlong, _c_int, _c_void_p],
+            _c_int,
+            [_c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, _c_int, _c_void_p,
+             ctypes.POINTER(_c_int)],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

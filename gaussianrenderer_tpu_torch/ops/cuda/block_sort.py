@@ -9,23 +9,26 @@ the sort is not stable, and equal keys may leave their payload rows in
 another order than a stable sort would. Both versions here reproduce the
 TPU kernel's output bit for bit, payloads included.
 
-u32 values are carried in int64 tensors; the kernel
-(``csrc/block_sort.cu``) reads and writes those int64 words and compares
-the low 32 bits of the key row as u32. ``block_sort_runs`` launches it
+u32 values are carried in int64 tensors; the kernels
+(``csrc/block_sort.cu``) read and write those int64 words and compare
+the low 32 bits of the key row as u32. ``block_sort_runs`` launches them
 for CUDA tensors and runs :func:`block_sort_runs_plain` for CPU tensors;
-nothing falls back.
+nothing falls back. Both take any run that is a power of two ≥ 256.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from gaussianrenderer_tpu_torch import _build
 
 ROWS = 9  # key + 8 payloads
-#: Longest run the kernel sorts (its (key, index) pairs fill 128 KB of
-#: shared memory); the plain version takes any.
-MAX_KERNEL_RUN = 16384
+#: Longest run one block sorts alone (8192 (key, index) pairs, 64 KB of
+#: shared memory); longer runs take global passes and more launches, with
+#: a (C,) int64 scratch.
+MAX_BLOCK_RUN = 8192
 
 
 def _check(x: torch.Tensor, run: int) -> int:
@@ -63,9 +66,10 @@ def block_sort_runs(x: torch.Tensor, run: int = 2048) -> torch.Tensor:
     """Sort each ``run``-sized block of ``x`` (9, C) by row 0.
 
     ``x`` holds u32 values as int64; C must be a multiple of ``run``, and
-    ``run`` a power of two ≥ 256 (and ≤ ``MAX_KERNEL_RUN`` on the card).
-    CUDA tensors launch the kernel (counted in ``launches``); CPU tensors
-    run :func:`block_sort_runs_plain`. Returns (9, C) int64.
+    ``run`` a power of two ≥ 256. CUDA tensors launch the kernels (calls
+    counted in ``launches``, kernels in ``kernel_launches``: one a call up
+    to ``MAX_BLOCK_RUN``, 10 at run 65536); CPU tensors run
+    :func:`block_sort_runs_plain`. Returns (9, C) int64.
     """
     dev = x.device
     if dev.type == "cpu":
@@ -73,21 +77,21 @@ def block_sort_runs(x: torch.Tensor, run: int = 2048) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"block_sort: unsupported device {dev}")
     c = _check(x, run)
-    if run > MAX_KERNEL_RUN:
-        raise ValueError(
-            f"block_sort: run {run} exceeds the kernel's largest, {MAX_KERNEL_RUN} "
-            "(a run's keys and indices must fit in one block's shared memory)"
-        )
     if x.dtype != torch.int64:
         raise ValueError("block_sort: x must hold u32 values as int64")
     if c == 0:
         return x.clone()
     x = x.contiguous()
     res = torch.empty_like(x)
+    pairs = torch.empty(c, dtype=torch.int64, device=dev) if run > MAX_BLOCK_RUN else None
     lib = _build.load("block_sort")
+    n = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gr_block_sort(x.data_ptr(), res.data_ptr(), c, run, stream)
+        rc = lib.gr_block_sort(x.data_ptr(), res.data_ptr(),
+                               None if pairs is None else pairs.data_ptr(), c, run,
+                               stream, ctypes.byref(n))
+    block_sort_runs.kernel_launches += n.value
     if rc != 0:
         raise RuntimeError(
             "block sort kernel launch failed: "
@@ -97,5 +101,6 @@ def block_sort_runs(x: torch.Tensor, run: int = 2048) -> torch.Tensor:
     return res
 
 
-#: Kernel launches made through ``block_sort_runs`` in this process.
-block_sort_runs.launches = 0
+#: Calls of ``block_sort_runs`` that launched (``launches``) and the
+#: kernels they launched (``kernel_launches``) in this process.
+block_sort_runs.launches = block_sort_runs.kernel_launches = 0

@@ -15,6 +15,11 @@ below 1e-3 or outside the range; weight ``alpha·T`` while ``T ≥ 1e-3``;
 update ``T ·= 1 − alpha`` ungated; and leave the tile at a chunk end once
 no pixel has ``T ≥ 1e-3``. The quadratic is the TPU kernel's direct form
 (``mxu_q=False``), which its own tests hold within 1e-3 of the MXU form.
+
+Both take every tile that ``RenderConfig.packed_compatible`` takes (sides
+≤ 255 pixels, a pixel count that is a multiple of 128) and, with the
+census, up to ``MAX_SAT_BLOCKS`` 16×16 blocks a tile, as the TPU kernel
+does (:func:`check_args`).
 """
 
 from __future__ import annotations
@@ -39,7 +44,12 @@ ALPHA_MAX = 0.99
 PACK_ROWS = 5
 #: Edge of the saturation census blocks (``with_sat``), in pixels.
 SAT_BLOCK = 16
-#: Tiles the plain version vectorizes over at a time.
+#: Census blocks a tile may have (the TPU kernel's ``SAT_PAD``).
+MAX_SAT_BLOCKS = 128
+#: Longest tile side: tile-local AABBs are u8.
+MAX_TILE_SIDE = 255
+#: Tiles of 1024 pixels the plain version vectorizes over at a time
+#: (fewer for larger tiles).
 TILE_BATCH = 16
 
 
@@ -102,6 +112,7 @@ def composite_tiles_packed_plain(
     tiles: Optional[Sequence[int]] = None,
     chunks_walked: Optional[torch.Tensor] = None,
     with_sat: bool = False,
+    pair_counts: Optional[torch.Tensor] = None,
 ):
     """The compositor in plain PyTorch, on the tensors' own device.
 
@@ -113,6 +124,13 @@ def composite_tiles_packed_plain(
     tile's number of chunks walked. ``with_sat`` also returns the
     per-16×16-block saturation lanes, (len(tiles)·B,) int32 in tile
     order (see :func:`composite_tiles_packed`).
+
+    ``pair_counts``, when given, is a (4,) int64 tensor to which the
+    (in-image pixel, walked lane in range) pairs of the computed tiles are
+    added: inside the lane's u8 AABB before the pixel's stop (T before the
+    lane ≥ 1e-3), outside it before the stop, inside after the stop,
+    outside after the stop. They are the work the function needs
+    (``chip_smoke.compositor_bound_ms``).
     """
     dev = packed_feats.device
     k = chunk
@@ -140,8 +158,9 @@ def composite_tiles_packed_plain(
                              device=dev)
 
     blocks = torch.zeros((nc, tile_ids.numel(), p), dtype=torch.float32, device=dev)
-    for b0 in range(0, tile_ids.numel(), TILE_BATCH):
-        tb = tile_ids[b0:b0 + TILE_BATCH]
+    batch = max(1, min(TILE_BATCH, TILE_BATCH * 1024 // p))
+    for b0 in range(0, tile_ids.numel(), batch):
+        tb = tile_ids[b0:b0 + batch]
         nb = tb.numel()
         start = tile_start[tb].to(torch.int64)
         count = tile_count[tb].to(torch.int64)
@@ -151,10 +170,10 @@ def composite_tiles_packed_plain(
         acc = torch.zeros((nb, p, nc - int(out_alpha)), dtype=torch.float32, device=dev)
         active = num_chunks > 0
         walked = torch.zeros(nb, dtype=torch.int64, device=dev)
+        in_img = (
+            ((tb % tiles_x) * tile_w)[:, None] + (pix % tile_w)[None, :] < width
+        ) & (((tb // tiles_x) * tile_h)[:, None] + (pix // tile_w)[None, :] < height)
         if with_sat:
-            in_img = (
-                ((tb % tiles_x) * tile_w)[:, None] + (pix % tile_w)[None, :] < width
-            ) & (((tb // tiles_x) * tile_h)[:, None] + (pix // tile_w)[None, :] < height)
             sat = sat_all[b0:b0 + nb]
         ci = 0
         while bool(active.any()):
@@ -189,6 +208,13 @@ def composite_tiles_packed_plain(
             t_all = torch.cumprod(seq, dim=2)
             t_before = t_all[:, :, :k]
             weights = torch.where(t_before >= T_EPS, t_before * alpha, 0.0)
+            if pair_counts is not None:
+                pair = in_img[:, :, None] & k_valid[:, None, :]
+                live = t_before >= T_EPS
+                pair_counts += torch.stack([
+                    (pair & live & inside).sum(), (pair & live & ~inside).sum(),
+                    (pair & ~live & inside).sum(), (pair & ~live & ~inside).sum(),
+                ]).to(pair_counts.device)
             acc = acc + torch.stack(
                 [(weights * cols[:, None, :, j]).sum(2) for j in range(cols.shape[2])],
                 dim=2,
@@ -242,6 +268,69 @@ def tile_blocks(
     return grid[:, torch.as_tensor(list(tiles), device=fb.device)]
 
 
+def check_args(
+    packed_feats: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    *,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+    width: int,
+    height: int,
+    chunk: int = 128,
+    out_alpha: bool = False,
+    depth_row: Optional[torch.Tensor] = None,
+    chunks_walked: Optional[torch.Tensor] = None,
+    with_sat: bool = False,
+) -> None:
+    """Raise ``ValueError`` for arguments the kernel does not take. It
+    takes every tile ``RenderConfig.packed_compatible`` takes (a pixel
+    count that is a multiple of 128, sides ≤ 255) and census tiles of at
+    most ``MAX_SAT_BLOCKS`` blocks. Reads only shapes, types and devices,
+    so it runs without a card."""
+    num_tiles = tiles_x * tiles_y
+    p = tile_w * tile_h
+    c = packed_feats.shape[1] if packed_feats.dim() == 2 else -1
+    n_blocks = (tile_w // SAT_BLOCK) * (tile_h // SAT_BLOCK)
+    checks = [
+        (packed_feats.dtype == torch.int32 and packed_feats.shape[0] == PACK_ROWS
+         and c >= 0, "packed_feats must be (5, C) int32"),
+        (tile_start.dtype == torch.int32 and tuple(tile_start.shape) == (num_tiles,),
+         f"tile_start must be ({num_tiles},) int32"),
+        (tile_count.dtype == torch.int32 and tuple(tile_count.shape) == (num_tiles,),
+         f"tile_count must be ({num_tiles},) int32"),
+        (depth_row is None or (depth_row.dtype == torch.float32
+                               and tuple(depth_row.shape) == (c,)),
+         "depth_row must be (C,) float32"),
+        (chunks_walked is None or (chunks_walked.dtype == torch.int32
+                                   and tuple(chunks_walked.shape) == (num_tiles,)),
+         f"chunks_walked must be ({num_tiles},) int32"),
+        (p > 0 and p % 128 == 0, "tile_w*tile_h must be a positive multiple of 128"),
+        (tile_w <= MAX_TILE_SIDE and tile_h <= MAX_TILE_SIDE,
+         f"tile sides must be ≤ {MAX_TILE_SIDE} (u8 tile-local AABBs)"),
+        (1 <= chunk <= 1024, "chunk must be in [1, 1024]"),
+        (tiles_x * tile_w >= width and tiles_y * tile_h >= height,
+         "the tile grid must cover the image"),
+        (not with_sat or (tile_w % SAT_BLOCK == 0 and tile_h % SAT_BLOCK == 0),
+         f"with_sat needs {SAT_BLOCK}px-divisible tiles"),
+        (not with_sat or n_blocks <= MAX_SAT_BLOCKS,
+         f"with_sat takes at most {MAX_SAT_BLOCKS} census blocks a tile"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"composite_tiles_packed: {msg}")
+    dev = packed_feats.device
+    tensors = [packed_feats, tile_start, tile_count]
+    tensors += [t for t in (depth_row, chunks_walked) if t is not None]
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(
+                "composite_tiles_packed: inputs must be contiguous and on one device"
+            )
+
+
 def composite_tiles_packed(
     packed_feats: torch.Tensor,
     tile_start: torch.Tensor,
@@ -292,40 +381,9 @@ def composite_tiles_packed(
     if dev.type != "cuda":
         raise ValueError(f"composite_tiles_packed: unsupported device {dev}")
 
+    check_args(packed_feats, tile_start, tile_count, **kw)
     num_tiles = tiles_x * tiles_y
-    p = tile_w * tile_h
-    c = packed_feats.shape[1] if packed_feats.dim() == 2 else -1
-    checks = [
-        (packed_feats.dtype == torch.int32 and packed_feats.shape[0] == PACK_ROWS
-         and c >= 0, "packed_feats must be (5, C) int32"),
-        (tile_start.dtype == torch.int32 and tuple(tile_start.shape) == (num_tiles,),
-         f"tile_start must be ({num_tiles},) int32"),
-        (tile_count.dtype == torch.int32 and tuple(tile_count.shape) == (num_tiles,),
-         f"tile_count must be ({num_tiles},) int32"),
-        (depth_row is None or (depth_row.dtype == torch.float32
-                               and tuple(depth_row.shape) == (c,)),
-         "depth_row must be (C,) float32"),
-        (chunks_walked is None or (chunks_walked.dtype == torch.int32
-                                   and tuple(chunks_walked.shape) == (num_tiles,)),
-         f"chunks_walked must be ({num_tiles},) int32"),
-        (p % 128 == 0 and p <= 4096, "tile_w*tile_h must be a multiple of 128, ≤ 4096"),
-        (1 <= chunk <= 1024, "chunk must be in [1, 1024]"),
-        (tiles_x * tile_w >= width and tiles_y * tile_h >= height,
-         "the tile grid must cover the image"),
-        (not with_sat or (tile_w % SAT_BLOCK == 0 and tile_h % SAT_BLOCK == 0),
-         f"with_sat needs {SAT_BLOCK}px-divisible tiles"),
-    ]
-    for ok, msg in checks:
-        if not ok:
-            raise ValueError(f"composite_tiles_packed: {msg}")
-    tensors = [packed_feats, tile_start, tile_count]
-    tensors += [t for t in (depth_row, chunks_walked) if t is not None]
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(
-                "composite_tiles_packed: inputs must be contiguous and on one device"
-            )
-
+    c = packed_feats.shape[1]
     lib = _build.load("tile_render2")
     nc = 3 + int(out_alpha) + int(depth_row is not None)
     out = torch.empty((nc, height, width), dtype=torch.float32, device=dev)
@@ -333,6 +391,11 @@ def composite_tiles_packed(
     if with_sat:
         n_blocks = (tile_w // SAT_BLOCK) * (tile_h // SAT_BLOCK)
         sat_idx = torch.empty((num_tiles * n_blocks,), dtype=torch.int32, device=dev)
+    n_state = lib.gr_tile_render2_state_floats(num_tiles, tile_w, tile_h, int(out_alpha),
+                                               int(with_sat))
+    state = None
+    if n_state:
+        state = torch.empty((n_state,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gr_tile_render2(
@@ -340,6 +403,7 @@ def composite_tiles_packed(
             None if depth_row is None else depth_row.data_ptr(), out.data_ptr(),
             None if chunks_walked is None else chunks_walked.data_ptr(),
             None if sat_idx is None else sat_idx.data_ptr(),
+            None if state is None else state.data_ptr(),
             tiles_x, tiles_y, tile_w, tile_h, width, height, chunk,
             int(out_alpha), int(depth_row is not None), stream,
         )

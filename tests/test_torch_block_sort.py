@@ -6,9 +6,9 @@ the JAX package's own test runs it on the CPU. The comparison is bit for
 bit on all 9 rows: the port reproduces the bitonic network and its tie
 rule (swap only when strictly out of order), not merely a sort, so on
 tied keys the payload rows must land where the TPU kernel puts them. The
-CUDA kernel runs only on a card (``chip_smoke.py`` holds it against the
-plain version there at the render path's instance count); its test here
-skips without one.
+CUDA kernels run only on a card (``chip_smoke.py`` holds them against the
+plain version there at the render path's instance count, runs 256 to
+65536); their test here skips without one.
 """
 
 import jax.numpy as jnp
@@ -65,6 +65,18 @@ def test_plain_bit_equal_to_jax(case):
             assert not np.array_equal(want[1:, sl], x[1:, stable[sl]])
 
 
+def test_plain_bit_equal_to_jax_at_run_32768():
+    """A run longer than one CUDA block sorts alone (8192): one matrix of
+    C = run, with keys in [0, 2**20) so that ties occur."""
+    run = 32768
+    x = _matrix(run, run, 2**20, seed=11)
+    want = np.asarray(jax_block_sort.block_sort_runs(jnp.asarray(x), run=run))
+    got = block_sort.block_sort_runs_plain(torch.from_numpy(x.astype(np.int64)), run=run)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert len(np.unique(x[0])) < run
+    np.testing.assert_array_equal(want[0], np.sort(x[0]))
+
+
 def test_permutation_depends_on_keys_alone():
     """The kernel sorts (key, in-run index) pairs and gathers the 9 rows
     by the index. That equals sorting all 9 rows
@@ -99,13 +111,11 @@ def test_contract_violations_raise(shape, run, match):
 def test_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
-    for run, c, key_hi in ((256, 1 << 16, 16), (2048, 1 << 16, 2**32), (16384, 1 << 16, 2**32)):
+    for run, c, key_hi in ((256, 1 << 16, 16), (2048, 1 << 16, 2**32),
+                           (16384, 1 << 16, 2**32), (32768, 1 << 16, 16)):
         x = torch.from_numpy(_matrix(run, c, key_hi, seed=run).astype(np.int64)).cuda()
         before = gt.block_sort_runs.launches
         got = gt.block_sort_runs(x, run=run)
         torch.cuda.synchronize()
         assert gt.block_sort_runs.launches == before + 1
         assert torch.equal(got, block_sort.block_sort_runs_plain(x, run=run))
-    with pytest.raises(ValueError, match="largest"):
-        gt.block_sort_runs(torch.zeros((9, 32768), dtype=torch.int64, device="cuda"),
-                           run=32768)

@@ -115,6 +115,32 @@ def test_plain_matches_jax_compositor(case, mxu_q):
     assert max(errs) <= MAX_ABS, errs
 
 
+def test_plain_matches_jax_compositor_on_64x128_tiles():
+    """8192-pixel tiles (``packed_compatible``; more pixels than one
+    block's threads), against the JAX kernel's direct quadratic
+    (``mxu_q=False``), the form the port computes. Its MXU form differs
+    from the port by up to 1.7e-3 on this frame's alpha row (T summed over
+    more lanes than on 32×32 tiles), beyond the 1e-3 its own test pins
+    between the two forms on smaller tiles."""
+    inst, cfg = packed_inputs(cfg_kw=dict(height=128, width=128, num_tile_x=2,
+                                          num_tile_y=1))
+    assert (cfg.tile_w, cfg.tile_h) == (64, 128) and cfg.packed_compatible
+    kw = geometry(cfg)
+    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32)
+    got = gt.composite_tiles_packed(
+        inst.packed_feats, inst.tile_start, inst.tile_count, out_alpha=True,
+        chunks_walked=walked, **kw,
+    ).numpy()
+    want = np.asarray(jax_tr2.composite_tiles_packed(
+        inst.packed_feats.numpy().view(np.uint32), inst.tile_start.numpy(),
+        inst.tile_count.numpy(), out_alpha=True, mxu_q=False, **kw,
+    ))
+    assert got.shape == want.shape == (4, cfg.height, cfg.width)
+    assert np.isfinite(got).all() and got[:3].max() > 0.1
+    assert max(max_abs_rows(got, want)) <= MAX_ABS
+    assert int(walked.max()) >= 2  # tiles walk more than one chunk
+
+
 def test_plain_tile_subset_and_chunk_counts():
     inst, cfg = packed_inputs(n=3000, seed=2, cfg_kw=dict(height=100, width=150))
     kw = geometry(cfg)
@@ -140,6 +166,64 @@ def test_plain_tile_subset_and_chunk_counts():
     assert (walked[inst.tile_count == 0] <= 1).all() and walked.max() >= 1
 
 
+def test_plain_pair_counts_add_up():
+    """``pair_counts`` splits every (in-image pixel, walked lane in range)
+    pair of the computed tiles by AABB and by the pixel's stop: the four
+    add up to the walked lanes times the tile's in-image pixels, and the
+    two inside an AABB to a direct count over the boxes."""
+    inst, cfg = packed_inputs(n=3000, seed=4, cfg_kw=dict(height=100, width=150))
+    kw = geometry(cfg)
+    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32)
+    counts = torch.zeros(4, dtype=torch.int64)
+    tr2.composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=walked,
+        pair_counts=counts, **kw,
+    )
+    k = cfg.packed_chunk
+    box = inst.packed_feats[4].long() & 0xFFFFFFFF
+    total = in_box = 0
+    for t in range(cfg.num_tiles):
+        s, c = int(inst.tile_start[t]), int(inst.tile_count[t])
+        end = min(s + c, (s // k) * k + int(walked[t]) * k)
+        w = min(cfg.width - (t % cfg.tiles_x) * cfg.tile_w, cfg.tile_w)
+        h = min(cfg.height - (t // cfg.tiles_x) * cfg.tile_h, cfg.tile_h)
+        b = box[s:max(end, s)]
+        nx = (torch.minimum(b >> 16 & 0xFF, torch.tensor(w - 1)) - (b & 0xFF) + 1).clamp(min=0)
+        ny = (torch.minimum(b >> 24, torch.tensor(h - 1)) - (b >> 8 & 0xFF) + 1).clamp(min=0)
+        total += max(end - s, 0) * w * h
+        in_box += int((nx * ny).sum())
+    live_in, live_out, stopped_in, stopped_out = counts.tolist()
+    assert live_in + live_out + stopped_in + stopped_out == total
+    assert live_in + stopped_in == in_box
+    assert live_in > 0 and stopped_in > 0
+
+
+def test_wrapper_checks_take_every_packed_compatible_tile():
+    """The kernel's argument checks (run here without a card) accept a tile
+    exactly when ``RenderConfig.packed_compatible`` does, and the census
+    exactly when the JAX kernel takes it (16-pixel-divisible sides, at most
+    SAT_PAD = 128 blocks)."""
+    empty = torch.zeros((5, 0), dtype=torch.int32)
+    seen = {True: 0, False: 0}
+    for tw in range(1, 261):
+        for th in (1, 2, 3, 4, 7, 8, 16, 32, 48, 64, 100, 127, 128, 160, 255, 256):
+            cfg = gt.RenderConfig(width=2 * tw, height=2 * th, num_tile_x=2, num_tile_y=2)
+            assert (cfg.tile_w, cfg.tile_h) == (tw, th)
+            ranges = torch.zeros(cfg.num_tiles, dtype=torch.int32)
+            for with_sat in (False, True):
+                want = cfg.packed_compatible and (not with_sat or (
+                    tw % 16 == 0 and th % 16 == 0 and (tw // 16) * (th // 16) <= 128))
+                try:
+                    tr2.check_args(empty, ranges, ranges, with_sat=with_sat,
+                                   **geometry(cfg))
+                    got = True
+                except ValueError:
+                    got = False
+                assert got == want, (tw, th, with_sat)
+                seen[got] += 1
+    assert seen[True] > 100 and seen[False] > 1000
+
+
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
     inst, cfg = packed_inputs(n=500, seed=3)
     before = gt.composite_tiles_packed.launches
@@ -153,9 +237,14 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
 def test_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
-    for want_depth in (False, True):
+    for want_depth, cfg_kw in (
+        (False, dict(height=600, width=800)),
+        (True, dict(height=600, width=800)),
+        (False, dict(height=512, width=768, num_tile_x=12, num_tile_y=4)),  # 64×128
+        (True, dict(height=512, width=768, num_tile_x=12, num_tile_y=4)),
+    ):
         inst, cfg = packed_inputs(n=20000, seed=0, want_depth=want_depth,
-                                  cfg_kw=dict(height=600, width=800), device="cuda")
+                                  cfg_kw=cfg_kw, device="cuda")
         kw = dict(geometry(cfg), out_alpha=want_depth, depth_row=inst.depth_f32)
         before = gt.composite_tiles_packed.launches
         k_out = gt.composite_tiles_packed(
@@ -170,3 +259,25 @@ def test_kernel_matches_plain_on_cuda():
         if want_depth:
             diff[-1] /= p_out[-1].abs().max().clamp_min(1e-6)
         assert float(diff.max()) <= 2e-3 and float(diff.mean()) <= 1e-5
+    # The census on 128×128 tiles without an alpha row, as the culled
+    # session calls it: 64 blocks a tile, its rectangles walked in groups
+    # with their state kept between chunks. Census and chunks walked equal.
+    inst, cfg = packed_inputs(
+        n=20000, seed=0, device="cuda",
+        cfg_kw=dict(height=512, width=768, num_tile_x=6, num_tile_y=4),
+    )
+    kw = geometry(cfg)
+    walked = [torch.zeros(cfg.num_tiles, dtype=torch.int32, device="cuda")
+              for _ in range(2)]
+    k_out, k_sat = gt.composite_tiles_packed(
+        inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True,
+        chunks_walked=walked[0], **kw
+    )
+    p_out, p_sat = tr2.composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True,
+        chunks_walked=walked[1], **kw
+    )
+    assert k_sat.shape == (cfg.num_tiles * 64,) and torch.equal(k_sat, p_sat)
+    assert torch.equal(walked[0], walked[1])
+    diff = (k_out - p_out).abs()
+    assert float(diff.max()) <= 2e-3 and float(diff.mean()) <= 1e-5

@@ -39,11 +39,13 @@ jax_build = jax.jit(
 
 
 @functools.lru_cache(maxsize=None)
-def jax_records(height, width, n=30000):
+def jax_records(height, width, n=30000, grid=(0, 0)):
     """The JAX package's packed records of a dense overdraw frame (most
-    blocks saturate), as NumPy arrays."""
+    blocks saturate), as NumPy arrays; ``grid`` is (num_tile_x,
+    num_tile_y), (0, 0) for the default 32×32 tiles."""
     js, _ = both_scenes(n, seed=0, extent=2.0, scale_range=(0.02, 0.08))
-    jcfg, cfg = both_configs(height=height, width=width)
+    jcfg, cfg = both_configs(height=height, width=width, num_tile_x=grid[0],
+                             num_tile_y=grid[1])
     jcam, _, _ = both_cameras(width, height, pos=(0.0, 0.0, 2.5), fov=70.0)
     geo = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
                tile_h=cfg.tile_h)
@@ -104,6 +106,19 @@ def test_sat_idx_matches_jax(size):
             first = min((start[t] // k + 1) * k, start[t] + count[t]) - 1
             if off.any() and count[t] > 0:
                 np.testing.assert_array_equal(psat[t * nb:(t + 1) * nb][off], first)
+
+
+def test_sat_idx_matches_jax_on_128x128_tiles():
+    """Census tiles of 64 blocks (more than one 32-bit mask word); the
+    last pixel column of the second tile is past the image."""
+    feats, start, count, cfg = jax_records(128, 255, n=20000, grid=(2, 1))
+    assert (cfg.tile_w, cfg.tile_h) == (128, 128) and cfg.packed_compatible
+    jfb, jsat, pfb, psat = both_with_sat(feats, start, count, cfg)
+    assert psat.shape == (cfg.num_tiles * 64,)
+    np.testing.assert_array_equal(psat, jsat)
+    # Blocks saturate in both 32-block halves of the first tile.
+    assert (psat[:32] >= 0).any() and (psat[32:64] >= 0).any() and (psat < 0).any()
+    assert np.abs(pfb - jfb).max() <= MAX_ABS
 
 
 def test_sat_idx_of_empty_tiles_matches_jax():
