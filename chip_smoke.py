@@ -41,8 +41,7 @@ its elapsed seconds:
                       the JAX package's recorded ones, median frame, stage
                       and kernel times, and the kernel's launch count; the
                       compositor's bound from the pairs the plain version
-                      counts before each pixel's stop, beside the bound
-                      that charged every walked pair (both pair counts);
+                      counts before each pixel's stop (the pair counts);
                       a torch.profiler pass over the 3M frame (device busy
                       share, device time by kernel and by PyTorch op);
 7. session-3m, session-trained-500k
@@ -75,10 +74,33 @@ its elapsed seconds:
                       gradient, one launch of each kernel per step; step
                       ms, CUDA-event stage ms, PSNR before and after, and
                       a torch.profiler pass over 3 steps;
-10. train-bench-shape
+10. fit-500k        — the fit main path: ``fit_scene`` on the same file,
+                      views, start, loss and optimizer, 60 steps with
+                      densify episodes at 20 and 40 and checkpoints at 30
+                      and 60, then ``evaluate`` on the views: loss finite
+                      and falling, episode bookkeeping sane (recycled ≤
+                      dead, ≤ 4·eligible), finite parameters stay finite,
+                      one forward and one backward train-kernel call a
+                      step and one forward per evaluated view, PSNR above
+                      the start's; the step-30 checkpoint restores the
+                      fit's params bit for bit, and a resume from it
+                      repeats the losses up to step 40 within 1e-3 and
+                      the episode steps with counts within 1e-3 of N;
+                      the fit's wall ms per step, the densifying
+                      step beside the plain step (10 synchronized steps
+                      each, in turns), one ``densify_step`` episode's
+                      CUDA-event ms (checked free of host waits) and
+                      ``evaluate`` ms per view;
+11. fit-app         — apps/fit on a poses.json dataset of 8 views of the
+                      file at 640×480 (.npy targets), refining the PLY
+                      for 40 steps with densification, held-out views and
+                      checkpoints (exit 0, PSNR lines, a PLY of the same
+                      N), again resumed from step 20; apps/train_test with
+                      its defaults (exit 0);
+12. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-11. gemm            — the GEMM harness: the port's apps/matrix_test at
+13. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -91,7 +113,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-12. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+14. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -99,7 +121,7 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-13. sort-harness    — the port's apps/onesweep and apps/radix_test with
+15. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
@@ -117,10 +139,12 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: Where every scene and frame of the run lives.
@@ -201,6 +225,26 @@ TRAIN_STEPS = 30
 TRAIN_POSES = 4
 TRAIN_POSE_DEG = 8.0
 TRAIN_H, TRAIN_W = 480, 640
+#: The fit main path (fit_scene on those views): steps, the densify and
+#: checkpoint cadences (episodes at 20 and 40 of 60 with densify_stop 0.7),
+#: the step resumed from, and the synchronized steps timed with and
+#: without densify. The checkpoint restores the state bit for bit; the
+#: resumed steps then differ from the uninterrupted ones in float order
+#: (the card's gradient sums have no fixed order). Up to the next
+#: episode that is float noise: the resumed losses are held within
+#: FIT_RESUME_REL relative of the uninterrupted run's. A splat near the
+#: opacity or gradient threshold may then fall the other way at the
+#: episode (one of 500k did on an H100), which shifts every later dead
+#: slot's donor: episode counts are held within FIT_RESUME_REL of the
+#: splat budget, and the losses after it are printed, not held (two
+#: uninterrupted runs of this fit on one H100 ended 7% apart; PERF.md).
+FIT_STEPS = 60
+FIT_DENSIFY_EVERY = 20
+FIT_CHECKPOINT_EVERY = 30
+FIT_RESUME_REL = 1e-3
+FIT_TIMED_STEPS = 10
+#: The fit-app dataset: views on the training orbit, 640×480 .npy targets.
+FIT_APP_VIEWS = 8
 #: fp32 operations per (in-image pixel, walked lane) pair of the train
 #: kernels that the function needs. Nothing once the pixel has stopped
 #: (t_before < 1e-3: gates are a prefix). While it is live: outside the
@@ -525,56 +569,11 @@ def compositor_bound_ms(pairs, inst, cfg, nc, out_alpha, depth=False):
     return bytes_s * 1e3, "bytes"
 
 
-def compositor_bound_all_pairs_ms(torch, inst, cfg, walked, nc):
-    """The bound as PRs 4–9 counted it, printed beside the one above for
-    comparison: every walked lane (up to its tile's exit, ``walked``
-    chunks) costs ``OPS_IN_BOX`` for each in-image pixel of its tile
-    inside its u8 AABB, stopped or not, and ``OPS_BOX_TEST`` for every
-    other in-image pixel. Returns (ms, "operations" | "bytes", pairs
-    walked, pairs inside an AABB)."""
-    k = cfg.packed_chunk
-    i64 = torch.int64
-    dev = inst.tile_count.device
-    count = inst.tile_count.to(i64)
-    start = inst.tile_start.to(i64)
-    reach = torch.minimum(start + count, (start // k) * k + walked.to(i64) * k)
-    tiles = torch.arange(cfg.num_tiles, device=dev)
-    # Tile of each record: the ranges are contiguous and in tile order.
-    lane_tile = torch.repeat_interleave(tiles, count)
-    keep = torch.arange(lane_tile.numel(), device=dev) < reach[lane_tile]
-    lane_tile = lane_tile[keep]
-    box = inst.packed_feats[4][keep].to(i64) & 0xFFFFFFFF
-    # In-image extent of each tile (the last column and row may be cut).
-    span_x = torch.clamp(cfg.width - (tiles % cfg.tiles_x) * cfg.tile_w, max=cfg.tile_w)
-    span_y = torch.clamp(cfg.height - (tiles // cfg.tiles_x) * cfg.tile_h,
-                         max=cfg.tile_h)
-    sx, sy = span_x[lane_tile], span_y[lane_tile]
-    nx = torch.clamp(torch.minimum(box >> 16 & 0xFF, sx - 1) - (box & 0xFF) + 1, min=0)
-    ny = torch.clamp(torch.minimum(box >> 24, sy - 1) - (box >> 8 & 0xFF) + 1, min=0)
-    pairs = int((sx * sy).sum())
-    in_box = int((nx * ny).sum())
-    ops_in = OPS_IN_BOX + (OPS_DEPTH if inst.depth_f32 is not None else 0)
-    ops_s = (in_box * ops_in + (pairs - in_box) * OPS_BOX_TEST) / PEAK_FP32_FLOPS
-    bytes_s = compositor_bytes_s(inst, cfg, nc, inst.depth_f32 is not None)
-    if ops_s >= bytes_s:
-        return ops_s * 1e3, "operations", pairs, in_box
-    return bytes_s * 1e3, "bytes", pairs, in_box
-
-
-def compositor_bounds(torch, inst, cfg, walked):
-    """Both bounds of an rgb frame without an alpha row, their pair counts,
-    and a check that the two counts agree on the pairs they share."""
+def compositor_bounds(torch, inst, cfg):
+    """The bound of an rgb frame without an alpha row and its pair counts."""
     pairs = compositor_pairs(torch, inst, cfg, False)
     bound_ms, bound_by = compositor_bound_ms(pairs, inst, cfg, 3, False)
-    old_ms, old_by, walked_pairs, in_box = compositor_bound_all_pairs_ms(
-        torch, inst, cfg, walked, 3)
-    check(sum(pairs.values()) == walked_pairs
-          and pairs["live_in_aabb"] + pairs["stopped_in_aabb"] == in_box,
-          f"compositor pair counts {pairs} disagree with {walked_pairs} walked, "
-          f"{in_box} in an AABB")
-    return {"bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs,
-            "bound_ms_all_walked_pairs": old_ms, "bound_by_all_walked_pairs": old_by,
-            "pairs_walked": walked_pairs, "pairs_in_aabb": in_box}
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
 
 
 # -------------------------------------------------------------------- phases
@@ -951,12 +950,9 @@ def phase_full(torch, gt, label, setup, card, frames=10):
     emission_ms = cuda_ms(torch, lambda: emit(proj), frames)
     inst = emit(proj)
     kw = comp_kwargs(cfg, False)
-    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
-    comp(inst.packed_feats, inst.tile_start, inst.tile_count,
-         chunks_walked=walked, **kw)
     kernel_ms = cuda_ms(torch, lambda: comp(
         inst.packed_feats, inst.tile_start, inst.tile_count, **kw), frames)
-    bounds = compositor_bounds(torch, inst, cfg, walked)
+    bounds = compositor_bounds(torch, inst, cfg)
     counts = {"num_instances": int(stats.num_instances),
               "num_culled": int(stats.num_culled)}
     res = {
@@ -1143,9 +1139,7 @@ def phase_session(torch, gt, label, setup, card, frames=10):
     kw = comp_kwargs(cfg, False)
     _, sat_idx = comp(inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True,
                       **kw)
-    walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
-    comp(inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=walked, **kw)
-    bounds = compositor_bounds(torch, inst, cfg, walked)
+    bounds = compositor_bounds(torch, inst, cfg)
     sy, sx = satcull.sat_grid(cfg.tiles_x, cfg.tiles_y, cfg.tile_w, cfg.tile_h)
     eff = satcull.dilate_cutoff(cut1, scfg.sat_dilate)
     table = satcull.build_pyramid(eff)
@@ -1665,6 +1659,246 @@ def phase_train(torch, gt, scene, card):
     return res
 
 
+def fit_dir(name):
+    """An empty scratch directory under the checkout's build/ (git-ignored)."""
+    path = os.path.join(REPO, "build", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def phase_fit(torch, gt, scene, card):
+    """The fit main path at full width: fit_scene on data/trained_500k.ply
+    at 640×480 over the train-500k views (targets the file's own renders)
+    from the seeded perturbation, l1_dssim_loss, the 3DGS Adam over
+    FIT_STEPS, densify episodes every FIT_DENSIFY_EVERY steps, checkpoints
+    every FIT_CHECKPOINT_EVERY; then evaluate on the views, and a resume
+    from the first checkpoint. Counts of both train kernels are set to 0
+    just before the fit and read just after, and again after evaluate.
+    Then the densifying step against the plain step in turns, and one
+    densify_step episode (with no host wait: sync debug mode)."""
+    from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    import numpy as np
+
+    cfg = train_500k_config(gt)
+    cams = train_poses(gt, cfg)
+    truth = gt.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        views = [(c, gt.render_for_training(truth, c, cfg)) for c in cams]
+    start = perturbed(torch, gt, truth)
+    n = start.positions.shape[0]
+    psnr_start = gt.evaluate(start, views, cfg)["psnr"]
+    ck = fit_dir("chip_smoke_fit")
+    kw = dict(steps=FIT_STEPS, loss_fn=gt.l1_dssim_loss, densify_every=FIT_DENSIFY_EVERY,
+              densify_stop=0.7)
+
+    def optimizer():
+        return gt.make_3dgs_optimizer(position_lr_max_steps=FIT_STEPS)
+
+    at_checkpoint = {}
+
+    def keep(step, params, loss):
+        at_checkpoint.setdefault(step, params)
+
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, hist = gt.fit_scene(views, cfg, start, optimizer=optimizer(), checkpoint_dir=ck,
+                                checkpoint_every=FIT_CHECKPOINT_EVERY, snapshot_fn=keep,
+                                snapshot_every=FIT_CHECKPOINT_EVERY, **kw)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    fit_launches = {"tile_train_fwd": tt.train_forward.launches,
+                    "tile_train_bwd": tt.train_backward.launches}
+    t0 = time.perf_counter()
+    report = gt.evaluate(fitted, views, cfg)
+    evaluate_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = {"tile_train_fwd": tt.train_forward.launches - fit_launches["tile_train_fwd"],
+                     "tile_train_bwd": tt.train_backward.launches - fit_launches["tile_train_bwd"]}
+
+    losses, episodes = hist["losses"], hist["densify"]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    checkpoints = sorted(os.listdir(ck))
+    resume_dir = os.path.join(ck, f"step_{FIT_CHECKPOINT_EVERY:06d}")
+    restored, _, _, _ = gt.load_checkpoint(resume_dir, start)
+    restored_equal = all(
+        p is None or bool(((p == r) | (torch.isnan(p) & torch.isnan(r))).all())
+        for p, r in zip(at_checkpoint[FIT_CHECKPOINT_EVERY], restored))
+    resumed, hist_r = gt.fit_scene(views, cfg, start, optimizer=optimizer(),
+                                   resume_from=resume_dir, **kw)
+    del resumed, restored
+    shutil.rmtree(ck)
+    later = [e for e in episodes if e["step"] > FIT_CHECKPOINT_EVERY]
+    # Losses of the resumed steps up to the first resumed episode's step
+    # (an episode runs after its step's loss).
+    upto = (later[0]["step"] if later else FIT_STEPS) - FIT_CHECKPOINT_EVERY
+    resume_rel = max(abs(a - b) / b for a, b in zip(
+        hist_r["losses"][:upto], losses[FIT_CHECKPOINT_EVERY:FIT_CHECKPOINT_EVERY + upto]))
+    final_rel = abs(hist_r["losses"][-1] - losses[-1]) / losses[-1]
+    count_diff = max((abs(a[k] - b[k]) for a, b in zip(hist_r["densify"], later)
+                      for k in ("dead", "eligible", "recycled")), default=0)
+
+    # The densifying step beside the plain one, in turns, from the start.
+    opt = optimizer()
+    dstep = ptrain._make_step_fn(cfg, opt, gt.l1_dssim_loss, timed=False, densify=True)
+    pstep, _ = gt.make_train_step(cfg, optimizer=opt, loss_fn=gt.l1_dssim_loss)
+    dp, dst, ds = start, opt.init(start), gt.DensifyState.zero(n, device=DEVICE)
+    pp, pst = start, opt.init(start)
+    first_needed = int(dstep(dp, dst, ds, *views[0])[4])
+    pstep(pp, pst, *views[0])
+    d_ms, p_ms = [], []
+    for s in range(FIT_TIMED_STEPS):
+        view = views[s % len(views)]
+        (dp, dst, ds, _, _), ms = host_ms(torch, lambda: dstep(dp, dst, ds, *view))
+        d_ms.append(ms)
+        (pp, pst, _), ms = host_ms(torch, lambda: pstep(pp, pst, *view))
+        p_ms.append(ms)
+    cam_pos = np.stack([c.position.cpu().numpy() for c in cams])
+    prune = 0.1 * float(np.linalg.norm(cam_pos - cam_pos.mean(axis=0), axis=1).max())
+
+    def episode():
+        return gt.densify_step(dp, dst, ds, seed=1, prune_scale=prune)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, _, _, info = episode()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    episode_ms = cuda_ms(torch, episode, 5)
+    res = {
+        "fit": "trained_500k",
+        "gaussians": n,
+        "num_instances_first_step": first_needed,
+        "resolution": f"{cfg.width}x{cfg.height}",
+        "views": len(views), "steps": FIT_STEPS,
+        "fit_ms_per_step": fit_ms / FIT_STEPS,
+        "fit_ms_per_step_counts": "wall clock of the whole fit_scene call, one "
+                                  "synchronize at its end: 2 episodes, 2 checkpoints",
+        "loss_first5_mean": first, "loss_last5_mean": last, "losses": losses,
+        "episodes": episodes,
+        "train_kernel_calls_fit": fit_launches,
+        "train_kernel_calls_evaluate": eval_launches,
+        "psnr_db_start": psnr_start, "psnr_db_fitted": report["psnr"],
+        "ssim_fitted": report["ssim"],
+        "evaluate_ms_per_view": evaluate_ms / len(views),
+        "resumed_from": FIT_CHECKPOINT_EVERY, "resumed_episodes": hist_r["densify"],
+        "resumed_final_loss": hist_r["losses"][-1], "final_loss": losses[-1],
+        "resumed_loss_rel_before_episode": resume_rel,
+        "resumed_final_loss_rel": final_rel, "resumed_losses": hist_r["losses"],
+        "resumed_episode_count_max_diff": count_diff,
+        "checkpoint_restores_bit_equal": restored_equal,
+        "densify_step_ms_median": statistics.median(d_ms), "densify_step_ms_all": d_ms,
+        "plain_step_ms_median": statistics.median(p_ms), "plain_step_ms_all": p_ms,
+        "episode_ms_median_of_5": episode_ms,
+        "episode_info": {k: int(v) for k, v in info.items()},
+        "episode_host_waits": len(syncs),
+        "card": card,
+    }
+    out(res)
+    check(len(losses) == FIT_STEPS and all(math.isfinite(v) for v in losses),
+          f"fit-500k: losses {losses}")
+    check(last < first, f"fit-500k: loss did not fall ({first:.5g} → {last:.5g})")
+    check([e["step"] for e in episodes] == [FIT_DENSIFY_EVERY, 2 * FIT_DENSIFY_EVERY],
+          f"fit-500k: episodes {episodes}")
+    check(all(0 <= e["recycled"] <= e["dead"] and e["recycled"] <= 4 * e["eligible"]
+              for e in episodes), f"fit-500k: episode bookkeeping {episodes}")
+    check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
+              for p, p0 in zip(fitted, start) if p is not None),
+          "fit-500k: a finite parameter became non-finite")
+    check(fit_launches == {"tile_train_fwd": FIT_STEPS, "tile_train_bwd": FIT_STEPS},
+          f"fit-500k: train kernel calls {fit_launches} in {FIT_STEPS} steps")
+    check(eval_launches == {"tile_train_fwd": len(views), "tile_train_bwd": 0},
+          f"fit-500k: evaluate's train kernel calls {eval_launches}")
+    check(report["psnr"] > psnr_start,
+          f"fit-500k: PSNR {report['psnr']:.3f} not above the start's {psnr_start:.3f}")
+    check(checkpoints == ["step_000030", "step_000060"], f"fit-500k: checkpoints {checkpoints}")
+    check(restored_equal, "fit-500k: the step-30 checkpoint does not restore the fit's params")
+    check(len(hist_r["losses"]) == FIT_STEPS - FIT_CHECKPOINT_EVERY,
+          f"fit-500k: {len(hist_r['losses'])} resumed steps")
+    check([e["step"] for e in hist_r["densify"]] == [e["step"] for e in later]
+          and count_diff <= FIT_RESUME_REL * n,
+          f"fit-500k: resumed episodes {hist_r['densify']} against {later}")
+    check(resume_rel <= FIT_RESUME_REL,
+          f"fit-500k: resumed losses {hist_r['losses'][:upto]} vs the fit's")
+    check(not syncs, f"fit-500k: densify_step waits for the device: {syncs}")
+    return res
+
+
+def phase_fit_app(torch, gt, scene, card):
+    """apps/fit on a poses.json dataset of FIT_APP_VIEWS trained_500k
+    views at 640×480 (.npy targets), refining data/trained_500k.ply with
+    densification, held-out views and checkpoints; again resumed from its
+    first checkpoint; apps/train_test with its defaults."""
+    import numpy as np
+
+    from gaussianrenderer_tpu_torch.apps import fit, train_test
+
+    cfg = train_500k_config(gt)
+    truth = gt.SceneParams.from_scene(scene)
+    root = fit_dir("chip_smoke_fit_app")
+    data = os.path.join(root, "dataset")
+    os.makedirs(data)
+    records = []
+    for i in range(FIT_APP_VIEWS):
+        ang = math.radians(45.0 + TRAIN_POSE_DEG * i)
+        cam = look_camera(gt, (5.5 * math.sin(ang), 1.7, 5.5 * math.cos(ang)),
+                          cfg.width / cfg.height, fov=60.0)
+        with torch.no_grad():
+            fb = gt.render_for_training(truth, cam.params(cfg.k_sigma, device=DEVICE), cfg)
+        np.save(os.path.join(data, f"view_{i}.npy"), fb.cpu().numpy().transpose(1, 2, 0)[::-1])
+        c2w = np.stack([cam.r_axis, -cam.u_axis, -cam.f_axis, cam.position], axis=1)
+        records.append({"c2w": c2w.tolist(), "fov_y": 60.0, "near": 0.2, "far": 100.0,
+                        "target": f"view_{i}.npy"})
+    with open(os.path.join(data, "poses.json"), "w") as fh:
+        json.dump(records, fh)
+    ck, ply = os.path.join(root, "ck"), os.path.join(root, "fitted.ply")
+    argv = [data, "--init", os.path.join(REPO, "data", "trained_500k.ply"),
+            "--sh-degree", "1", "--steps", "40", "--densify-every", "10",
+            "--opacity-reset-every", "0", "--holdout-every", "4"]
+    t0 = time.perf_counter()
+    rc, text = run_app(fit, argv + ["--checkpoint-dir", ck, "--checkpoint-every", "20",
+                                    "--out", ply])
+    fit_s = time.perf_counter() - t0
+    log(text)
+    check(rc == 0, f"fit-app: apps/fit exited {rc}")
+    lines = text.splitlines()
+    final = [line for line in lines if line.startswith("final: PSNR")]
+    held = [line for line in lines if line.startswith("held-out: PSNR")]
+    check(len(final) == 1 and len(held) == 1, "fit-app: no final and held-out PSNR lines")
+    check(f"wrote {ply}" in lines and os.path.isfile(ply), "fit-app: no PLY written")
+    n_out = gt.load_ply(ply, max_sh_degree=1, device=DEVICE).num_gaussians
+    check(n_out == scene.num_gaussians, f"fit-app: the PLY holds {n_out} splats")
+    check(sorted(os.listdir(ck)) == ["step_000020", "step_000040"],
+          f"fit-app: checkpoints {os.listdir(ck)}")
+    t0 = time.perf_counter()
+    rc_r, text_r = run_app(fit, argv + ["--resume", os.path.join(ck, "step_000020"),
+                                        "--out", os.path.join(root, "resumed.ply")])
+    resume_s = time.perf_counter() - t0
+    log(text_r)
+    check(rc_r == 0, f"fit-app: apps/fit --resume exited {rc_r}")
+    t0 = time.perf_counter()
+    rc_t, text_t = run_app(train_test, [])
+    train_test_s = time.perf_counter() - t0
+    log(text_t)
+    check(rc_t == 0, f"fit-app: apps/train_test exited {rc_t}")
+    shutil.rmtree(root)
+    res = {"fit_app": f"apps/fit {' '.join(argv[1:])} on {FIT_APP_VIEWS} views",
+           "final": final[0], "held_out": held[0], "ply_gaussians": n_out,
+           "fit_s": fit_s, "resumed_fit_s": resume_s,
+           "resumed_final": [l for l in text_r.splitlines() if l.startswith("final")],
+           "train_test_s": train_test_s, "train_test": text_t.splitlines(),
+           "card": card}
+    out(res)
+    return res
+
+
 def phase_train_bench(torch, gt, card, steps=10, n=500_000, size=800):
     """tools/train_bench.py's shape: make_random_scene(500k, seed 0,
     extent 4, scales 0.004–0.03) at 800×800, camera (0, 1, 8), Adam(1e-2),
@@ -2098,6 +2332,12 @@ def main() -> int:
 
     with Phase("train-500k", torch):
         train_res = phase_train(torch, gt, scene500, card)
+
+    with Phase("fit-500k", torch):
+        fit_res = phase_fit(torch, gt, scene500, card)
+
+    with Phase("fit-app", torch):
+        phase_fit_app(torch, gt, scene500, card)
     del scene500
     torch.cuda.empty_cache()
 
@@ -2126,7 +2366,6 @@ def main() -> int:
         "bound_ms": res3m["bound_ms"],
         "bound_by": res3m["bound_by"],
         "library_ms": None,
-        "bound_ms_all_walked_pairs": res3m["bound_ms_all_walked_pairs"],
         "pairs": res3m["pairs"],
         "shape": "3M splats, 1920x1080, 32x32 tiles, chunk 256",
         "plain_scope": f"{len(tiles)} tiles of that frame (no yardstick)",
@@ -2134,8 +2373,7 @@ def main() -> int:
         "trained_500k": {"ms": res500["kernel_ms_median"],
                          "launches": res500["kernel_launches"],
                          "bound_ms": res500["bound_ms"],
-                         "bound_by": res500["bound_by"],
-                         "bound_ms_all_walked_pairs": res500["bound_ms_all_walked_pairs"]},
+                         "bound_by": res500["bound_by"]},
         "culled_frame_with_sat_ms": sess3m["culled_frame_stage_ms"]["compositor_with_sat"],
         "culled_frame_plain_ms": sess3m["culled_frame_stage_ms"]["compositor_plain"],
         "session_launches": sess3m["kernel_launches"]["tile_render2"],
@@ -2180,6 +2418,7 @@ def main() -> int:
         "gradient_max_rel_err": train_times["bwd_max_rel_err"] if kind == "bwd" else None,
         "step_ms_median": train_res["step_ms_median"],
         "bench_shape_step_ms_median": bench_res["step_ms_median"],
+        "fit_launches": fit_res["train_kernel_calls_fit"][f"tile_train_{kind}"],
     } for kind, line in (("fwd", 154), ("bwd", 295))] + [{
         "name": "matmul_sm90",
         "route": "cuda",

@@ -25,6 +25,13 @@ where every kernel's plain PyTorch version runs instead.
     state = opt.init(params)
     params, state, loss = step(params, state, cam.params(3.0), target)
 
+    # A fit with densification, from a poses.json dataset (apps/fit).
+    views = gt.load_views("dataset/", cfg)
+    params, history = gt.fit_scene(views, cfg, params, steps=3000,
+                                   loss_fn=gt.l1_dssim_loss, densify_every=300)
+    print(gt.evaluate(params, views, cfg)["psnr"])
+    gt.save_ply(params.to_scene(), "fitted.ply")
+
     # The harnesses' kernels: the blocked bf16 GEMM and the bitonic block
     # sort (apps/matrix_test, apps/radix_test, apps/onesweep).
     c = gt.matmul_blocked(a_bf16, b_bf16, bm=128, bn=128, bk=128)  # f32
@@ -33,7 +40,9 @@ where every kernel's plain PyTorch version runs instead.
 
 from gaussianrenderer_tpu_torch.config import RenderConfig, parse_color
 from gaussianrenderer_tpu_torch.convert import (
+    to_torch_adam_state,
     to_torch_camera,
+    to_torch_densify_state,
     to_torch_params,
     to_torch_scene,
 )
@@ -82,22 +91,33 @@ from gaussianrenderer_tpu_torch.render import (
 )
 from gaussianrenderer_tpu_torch.scene.camera import Camera, CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene, morton_codes
-from gaussianrenderer_tpu_torch.scene.io import load_ply, make_random_scene
+from gaussianrenderer_tpu_torch.scene.io import load_ply, make_random_scene, save_ply
 from gaussianrenderer_tpu_torch.train import (
+    DensifyState,
     SceneParams,
+    accumulate_densify_stats,
+    dataset_image_shape,
+    densify_step,
+    evaluate,
+    fit_scene,
     l1_dssim_loss,
+    load_checkpoint,
+    load_views,
     make_3dgs_optimizer,
     make_optimizer,
     make_train_step,
     mse_loss,
+    psnr,
     render_for_training,
     reset_opacity,
+    save_checkpoint,
     ssim,
 )
 
 __all__ = [
     "Camera",
     "CameraParams",
+    "DensifyState",
     "GaussianScene",
     "PackedInstances",
     "ProjectedGaussians",
@@ -105,6 +125,7 @@ __all__ = [
     "RenderStats",
     "SceneParams",
     "TileAssignment",
+    "accumulate_densify_stats",
     "block_sort_runs",
     "block_sort_runs_plain",
     "build_features",
@@ -115,11 +136,17 @@ __all__ = [
     "composite_tiles_packed_plain",
     "composite_tiles_train",
     "composite_tiles_xla",
+    "dataset_image_shape",
+    "densify_step",
     "eval_sh_columns",
+    "evaluate",
+    "fit_scene",
     "framebuffer_to_image",
     "is_nondecreasing",
     "l1_dssim_loss",
+    "load_checkpoint",
     "load_ply",
+    "load_views",
     "make_3dgs_optimizer",
     "make_optimizer",
     "make_random_scene",
@@ -132,18 +159,23 @@ __all__ = [
     "pack_key",
     "parse_color",
     "preprocess_gaussians",
+    "psnr",
     "radix_sort_u32",
     "render_for_training",
     "render_frame",
     "reset_opacity",
     "satcull",
+    "save_checkpoint",
+    "save_ply",
     "save_png",
     "slice_spacetime",
     "sort_packed",
     "sort_two_key",
     "ssim",
     "table_lookup",
+    "to_torch_adam_state",
     "to_torch_camera",
+    "to_torch_densify_state",
     "to_torch_params",
     "to_torch_scene",
     "unpack_key",

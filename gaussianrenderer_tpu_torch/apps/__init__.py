@@ -1,4 +1,4 @@
-"""Executable apps — the JAX package's harness apps, ported. Run as
+"""Executable apps — the JAX package's apps, ported. Run as
 ``python -m gaussianrenderer_tpu_torch.apps.<name> [--device cpu]``:
 
   radix_test      sort benchmark sweep with JSONL output
@@ -6,6 +6,8 @@
   matrix_test     GEMM benchmark (the CUDA kernel vs torch.mm)
   parser_test     PLY parse smoke
   camera_test     camera construction smoke
+  train_test      training demo: densifying steps toward target renders
+  fit             gr-fit: fit a scene to a poses.json dataset
 
 Each takes the JAX app's flags and defaults, prints its lines and
 returns its exit codes, and adds ``--device`` (default ``cuda``; ``cpu``

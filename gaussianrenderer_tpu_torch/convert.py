@@ -16,7 +16,7 @@ import torch
 from gaussianrenderer_tpu_torch._device import resolve_device
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
-from gaussianrenderer_tpu_torch.train import SceneParams
+from gaussianrenderer_tpu_torch.train import AdamState, DensifyState, SceneParams
 
 
 def _tensor(x, dev, dtype=None):
@@ -46,7 +46,6 @@ def to_torch_camera(cam, device="cuda") -> CameraParams:
     )
 
 
-
 def to_torch_params(params, device="cuda"):
     """Trainable parameters (positions, sh, raw_opacity, raw_scales,
     quats, optional time_params; the JAX package's ``SceneParams`` after
@@ -56,3 +55,22 @@ def to_torch_params(params, device="cuda"):
     return SceneParams(
         *(_tensor(getattr(params, f), dev, np.float32) for f in SceneParams._fields)
     )
+
+
+def to_torch_densify_state(state, device="cuda") -> DensifyState:
+    """Densification accumulators (grad_accum, denom, steps; the JAX
+    package's ``DensifyState`` after ``np.asarray`` on its leaves) → the
+    port's ``train.DensifyState`` on ``device``."""
+    dev = resolve_device(device)
+    return DensifyState(_tensor(state.grad_accum, dev, np.float32),
+                        _tensor(state.denom, dev, np.float32),
+                        _tensor(state.steps, dev, np.int32))
+
+
+def to_torch_adam_state(count, mu, nu, device="cuda") -> AdamState:
+    """Adam's step count and moments (an optax ``adam`` state's ``count``,
+    ``mu`` and ``nu``, each moment a SceneParams-like object of NumPy
+    arrays) → the port's ``train.AdamState`` on ``device``."""
+    dev = resolve_device(device)
+    return AdamState(_tensor(count, dev, np.int32), to_torch_params(mu, dev),
+                     to_torch_params(nu, dev))

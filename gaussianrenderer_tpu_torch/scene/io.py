@@ -2,7 +2,8 @@
 
 Counterpart of ``gaussianrenderer_tpu.scene.io``: the vectorized NumPy
 PLY reader (binary little-endian only, activations baked in at load:
-``opacity = sigmoid(raw)``, ``scale = exp(raw)``) and
+``opacity = sigmoid(raw)``, ``scale = exp(raw)``), ``save_ply``, whose
+files are byte-equal to the JAX package's for the same scene, and
 ``make_random_scene``, which draws from the same NumPy generator in the
 same order so one seed gives equal arrays in both packages.
 """
@@ -174,6 +175,57 @@ def _load_ply_numpy(path: str, max_sh_degree: int):
         time_params = np.stack(fields, axis=1)
 
     return (positions, sh, opacity, scales, quats), time_params
+
+
+def save_ply(scene: GaussianScene, path: str) -> None:
+    """Write a scene as a binary little-endian 3DGS PLY.
+
+    Inverts the load-time activations (logit of opacity, log of scale),
+    so a round trip keeps the on-disk convention. Spacetime scenes also
+    write ``t_center, t_sigma`` (and ``vx, vy, vz`` for (N, 5) motion),
+    raw, which :func:`load_ply` reads back."""
+
+    def arr(x):
+        return x.detach().cpu().numpy().astype(np.float32, copy=False)
+
+    positions, sh, opacity, scales, quats = (
+        arr(scene.positions), arr(scene.sh), arr(scene.opacity), arr(scene.scales),
+        arr(scene.quats))
+    tp = None if scene.time_params is None else arr(scene.time_params)
+    n = positions.shape[0]
+    n_rest = sh.shape[1] - 3
+
+    eps = 1e-7
+    op = np.clip(opacity, eps, 1.0 - eps)
+    raw_opacity = np.log(op / (1.0 - op))
+    raw_scales = np.log(np.maximum(scales, 1e-30))
+
+    names = (
+        ["x", "y", "z", "nxx", "ny", "nz"]
+        + [f"f_dc_{i}" for i in range(3)]
+        + [f"f_rest_{i}" for i in range(n_rest)]
+        + ["opacity"]
+        + [f"scale_{i}" for i in range(3)]
+        + [f"rot_{i}" for i in range(4)]
+    )
+    if tp is not None:
+        names += ["t_center", "t_sigma"] + (["vx", "vy", "vz"] if tp.shape[1] >= 5 else [])
+    body = np.zeros((n, len(names)), dtype="<f4")
+    body[:, 0:3] = positions
+    body[:, 6:9] = sh[:, :3]
+    body[:, 9 : 9 + n_rest] = sh[:, 3:]
+    body[:, 9 + n_rest] = raw_opacity
+    body[:, 10 + n_rest : 13 + n_rest] = raw_scales
+    body[:, 13 + n_rest : 17 + n_rest] = quats
+    if tp is not None:
+        body[:, 17 + n_rest : 17 + n_rest + tp.shape[1]] = tp
+
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {name}" for name in names]
+    header += ["end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        body.tofile(f)
 
 
 def make_random_scene(

@@ -14,26 +14,41 @@ single-device parts of ``train.py``).
   optax's arithmetic, the latter with the 3DGS per-group rates, the
   decayed position rate and the higher SH bands' updates divided by 20.
 * :func:`make_train_step` — ``(params, opt_state, cam, target[,
-  time_value]) → (params, opt_state, loss)``.
+  time_value]) → (params, opt_state, loss)``; :func:`_make_step_fn` is
+  its body, and with ``densify=True`` the step also folds the view-space
+  gradient into a :class:`DensifyState`.
+* :func:`densify_step` — one adaptive-density-control episode under a
+  fixed splat budget: pruned slots are refilled with samples of the
+  highest-gradient donors, on the device with no host wait.
+* :func:`fit_scene` — the training loop as one call (densification,
+  opacity resets, SH warm-up, checkpoints, resume); :func:`evaluate`,
+  :func:`load_views` / :func:`dataset_image_shape` for ``poses.json``
+  datasets, :func:`save_checkpoint` / :func:`load_checkpoint`.
 
 The optimizer is functional, like optax: ``opt.init(params)`` makes the
 state, ``opt.update(grads, state)`` returns the updates and the new state,
 and :func:`apply_updates` adds the updates to new parameter tensors.
-Densification, ``fit_scene``, evaluation, dataset loading and checkpoints
-are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Union
+import json
+import math
+import os
+import warnings
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from gaussianrenderer_tpu_torch._device import resolve_device
 from gaussianrenderer_tpu_torch.config import RenderConfig
+from gaussianrenderer_tpu_torch.ops.projection import preprocess_gaussians, slice_spacetime
 from gaussianrenderer_tpu_torch.render import _render_impl
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
+
 
 class SceneParams(NamedTuple):
     """Trainable pre-activation scene parameters. ``time_params`` is the
@@ -292,6 +307,89 @@ def reset_opacity(params: SceneParams, opt_state: Optional[AdamState] = None,
     )
 
 
+def _emission_terms(scene_like: GaussianScene, cam: CameraParams, tcfg: RenderConfig,
+                    time_value=None):
+    """The training path's emission for one view: ``(needed, visible)``,
+    ``needed`` the Σ valid·w·h tile-rect total as a 0-d int64 tensor (the
+    path emits each valid splat's whole rect, so it equals the instances
+    of the view) and ``visible`` ``proj.valid``, upstream 3DGS's
+    ``radii > 0`` visibility. A no-grad re-projection of ``scene_like``
+    with the training config; the port has no static instance capacity,
+    so nothing compares ``needed`` with one."""
+    with torch.no_grad():
+        s, extra = slice_spacetime(scene_like, time_value)
+        proj = preprocess_gaussians(
+            s, cam, width=tcfg.width, height=tcfg.height, tile_w=tcfg.tile_w,
+            tile_h=tcfg.tile_h, tiles_x=tcfg.tiles_x, tiles_y=tcfg.tiles_y,
+            sh_degree=tcfg.sh_degree, extra_opacity_scale=extra,
+            quantize_centers=tcfg.quantize_centers, ewa_dilation=tcfg.ewa_dilation,
+            ewa_compensate=tcfg.ewa_compensate,
+        )
+        w = (proj.tile_max[:, 0] - proj.tile_min[:, 0] + 1).to(torch.int64)
+        h = (proj.tile_max[:, 1] - proj.tile_min[:, 1] + 1).to(torch.int64)
+        needed = torch.where(proj.valid, w * h, 0).sum()
+    return needed, proj.valid
+
+
+def _make_step_fn(cfg: RenderConfig, optimizer: "Adam", loss_fn, *, timed: bool,
+                  densify: bool):
+    """The train-step body shared by :func:`make_train_step` and
+    :func:`fit_scene`.
+
+    ``step(params, opt_state, [dstate,] cam, target[, time_value])``:
+    ``densify=True`` takes and returns a :class:`DensifyState` and
+    differentiates the loss with respect to an all-zeros (2, N) NDC probe
+    as well, whose gradient is the view-space positional gradient
+    adaptive density control keys on; it returns ``(params, opt_state,
+    dstate, loss, needed)`` with ``needed`` from :func:`_emission_terms`
+    on the pre-update parameters. Without it the step returns
+    ``(params, opt_state, loss)``."""
+    n_in = 2 + int(timed) + int(densify)
+
+    def step(params: SceneParams, opt_state: AdamState, *rest):
+        if len(rest) != n_in:
+            raise TypeError(
+                ("make_train_step" if not densify else "_make_step_fn(densify=True)")
+                + ": the step takes (params, opt_state, "
+                + ("dstate, " if densify else "") + "cam, target"
+                + (", time_value)" if timed else ")")
+            )
+        if densify:
+            dstate, rest = rest[0], rest[1:]
+        cam, target, extra = rest[0], rest[1], tuple(rest[2:])
+        leaves = SceneParams(*(
+            None if p is None else p.detach().requires_grad_(True) for p in params
+        ))
+        live = [p for p in leaves if p is not None]
+        if densify:
+            probe = torch.zeros((2, params.positions.shape[0]), dtype=torch.float32,
+                                device=params.positions.device, requires_grad=True)
+            loss = loss_fn(leaves, cam, target, cfg, *extra, ndc_probe=probe)
+            live.append(probe)
+        else:
+            loss = loss_fn(leaves, cam, target, cfg, *extra)
+        grads = iter(torch.autograd.grad(loss, live, allow_unused=True))
+        grads_tree = SceneParams(*(
+            None if p is None else _or_zeros(next(grads), p) for p in leaves
+        ))
+        with torch.no_grad():
+            if densify:
+                view_grads = _or_zeros(next(grads), probe)
+                needed, visible = _emission_terms(
+                    params.to_scene(), cam, _training_config(cfg),
+                    extra[0] if extra else None,
+                )
+            updates, opt_state = optimizer.update(grads_tree, opt_state, params)
+            params = apply_updates(SceneParams(*(
+                None if p is None else p.detach() for p in params)), updates)
+            if densify:
+                dstate = accumulate_densify_stats(dstate, view_grads, visible)
+                return params, opt_state, dstate, loss.detach(), needed
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 def make_train_step(cfg: RenderConfig, optimizer: Optional[Adam] = None,
                     loss_fn=None, timed: bool = False):
     """A single-device train step against a target frame; returns
@@ -306,31 +404,556 @@ def make_train_step(cfg: RenderConfig, optimizer: Optional[Adam] = None,
     0-d tensor."""
     optimizer = optimizer or make_optimizer()
     loss_fn = loss_fn or mse_loss
-
-    def step(params: SceneParams, opt_state: AdamState, cam, target, *time_value):
-        if len(time_value) != int(timed):
-            raise TypeError(
-                "make_train_step: the step takes (params, opt_state, cam, target"
-                + (", time_value)" if timed else ")")
-            )
-        leaves = SceneParams(*(
-            None if p is None else p.detach().requires_grad_(True) for p in params
-        ))
-        loss = loss_fn(leaves, cam, target, cfg, *time_value)
-        live = [p for p in leaves if p is not None]
-        grads = iter(torch.autograd.grad(loss, live, allow_unused=True))
-        grads = SceneParams(*(
-            None if p is None else _or_zeros(next(grads), p) for p in leaves
-        ))
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = apply_updates(SceneParams(*(
-                None if p is None else p.detach() for p in params)), updates)
-        return params, opt_state, loss.detach()
-
-    return step, optimizer
+    return _make_step_fn(cfg, optimizer, loss_fn, timed=timed, densify=False), optimizer
 
 
 def _or_zeros(g, p):
     """A leaf the loss does not reach (``allow_unused``) has gradient 0."""
     return torch.zeros_like(p) if g is None else g
+
+
+# ------------------------------------------------- adaptive density control
+class DensifyState(NamedTuple):
+    """Accumulated densification statistics (leading dim N): the 3DGS
+    adaptive-density-control bookkeeping. ``grad_accum`` sums the norm of
+    the view-space positional gradient (the gradient of the zero NDC
+    probe, upstream's ``means2D`` gradient, so the paper's 2e-4 threshold
+    keeps its meaning) and ``denom`` counts the steps a splat projected."""
+
+    grad_accum: torch.Tensor  # (N,) f32
+    denom: torch.Tensor  # (N,) f32
+    steps: torch.Tensor  # () int32
+
+    @classmethod
+    def zero(cls, n: int, device="cuda") -> "DensifyState":
+        dev = resolve_device(device)
+        return cls(
+            grad_accum=torch.zeros((n,), dtype=torch.float32, device=dev),
+            denom=torch.zeros((n,), dtype=torch.float32, device=dev),
+            steps=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+
+def accumulate_densify_stats(state: DensifyState, view_grads: torch.Tensor,
+                             visible: Optional[torch.Tensor] = None) -> DensifyState:
+    """Fold one step's (2, N) view-space gradient into ``state``.
+    ``visible`` is the (N,) projected mask (upstream's ``update_filter``);
+    without it a splat counts as seen where its gradient is nonzero."""
+    gx, gy = view_grads[0], view_grads[1]
+    norm = torch.sqrt(gx * gx + gy * gy)
+    seen = (norm > 0.0) if visible is None else visible
+    return DensifyState(
+        grad_accum=state.grad_accum + norm,
+        denom=state.denom + seen.to(torch.float32),
+        steps=state.steps + 1,
+    )
+
+
+def _densify_eps(seed: int, n: int, device) -> torch.Tensor:
+    """The (n, 3) standard-normal sample offsets of a densify episode,
+    from a ``torch.Generator`` on ``device`` seeded with ``seed``. The
+    JAX package draws ``jax.random.normal(PRNGKey(seed))``, which this
+    does not reproduce: the same seed gives other samples."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.randn((n, 3), generator=gen, device=device, dtype=torch.float32)
+
+
+def _nanquantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.nanquantile(x, q)`` (linear interpolation) of a 1-D f32
+    tensor, from one sort (NaN sorts last): the same arithmetic in the same
+    order, with no size limit (``torch.nanquantile`` refuses inputs above
+    2^24 elements) and no host wait."""
+    s = torch.sort(x).values
+    counts = (~torch.isnan(x)).sum().to(torch.float32)
+    pos = (counts - 1.0) * q
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_weight = pos - low
+    low_weight = 1.0 - high_weight
+    low = torch.clamp_min(torch.minimum(low, counts - 1.0), 0.0).to(torch.int64)
+    high = torch.clamp_min(torch.minimum(high, counts - 1.0), 0.0).to(torch.int64)
+    # take(), not s[low]: indexing by a 0-d tensor reads it on the host.
+    return torch.take(s, low) * low_weight + torch.take(s, high) * high_weight
+
+
+def _rows(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
+
+def densify_step(
+    params: SceneParams,
+    opt_state: AdamState,
+    state: DensifyState,
+    *,
+    grad_threshold: float = 2e-4,
+    prune_opacity: float = 5e-3,
+    split_scale_pct: float = 0.75,
+    prune_scale: Optional[float] = None,
+    seed: int = 0,
+):
+    """One adaptive-density-control episode under a fixed splat budget N.
+
+    Splats below ``prune_opacity`` (and, with ``prune_scale``, those whose
+    largest world-space scale exceeds it) are dead slots. Donors are the
+    live splats whose mean view-space gradient exceeds
+    ``grad_threshold``, ranked by descending score; dead slot ``r`` (in
+    index order) is refilled from donor ``r mod n_eligible``, at most 4
+    slots a donor. A refill samples inside its donor's Gaussian (``p +
+    R·(s ⊙ ε)``, ε from :func:`_densify_eps` with ``seed``) and copies the
+    donor's other leaves; a donor at or above the ``split_scale_pct``
+    quantile of max scale is split: the refill and the donor itself
+    shrink by 1/1.6. The Adam moments of refilled rows are zeroed (every
+    leaf of ``mu`` and ``nu``; ``count`` is kept). All on the device.
+
+    Returns ``(params, opt_state, DensifyState.zero(N), info)`` with
+    ``info`` holding ``recycled``, ``dead`` and ``eligible`` as 0-d
+    tensors."""
+    n = params.positions.shape[0]
+    dev = params.positions.device
+    r = torch.arange(n, device=dev)
+    opacity = torch.sigmoid(params.raw_opacity)
+    dead = opacity < prune_opacity
+    scales = torch.exp(params.raw_scales)
+    max_scale = torch.amax(scales, dim=1)
+    if prune_scale is not None:
+        dead = dead | (max_scale > prune_scale)
+    score = state.grad_accum / torch.clamp_min(state.denom, 1.0)
+    eligible = (~dead) & (score > grad_threshold)
+
+    # Donors by descending score, then the dead slots in index order.
+    donor_idx = torch.argsort(torch.where(eligible, -score, float("inf")), stable=True)
+    slot_idx = torch.argsort((~dead).to(torch.int8), stable=True)
+    n_dead = dead.sum()
+    n_eligible = eligible.sum()
+    n_recycle = torch.minimum(n_dead, 4 * n_eligible)
+    donor_of_slot = donor_idx[r % torch.clamp_min(n_eligible, 1)]
+    take = r < n_recycle
+    src = torch.where(take, donor_of_slot, slot_idx)
+    refill = torch.zeros((n,), dtype=torch.bool, device=dev).index_copy_(0, slot_idx, take)
+    source_of = torch.zeros((n,), dtype=torch.int64, device=dev).index_copy_(0, slot_idx, src)
+    source_of = torch.where(refill, source_of, r)
+
+    # Split or clone by the donor's extent.
+    split_cut = _nanquantile(torch.where(dead, float("nan"), max_scale), split_scale_pct)
+    is_split_donor = max_scale >= split_cut
+
+    eps = _densify_eps(seed, n, dev)
+    donor_scales = scales[source_of]
+    donor_quats = params.quats[source_of]
+    qn = donor_quats / torch.clamp_min(
+        torch.linalg.norm(donor_quats, dim=1, keepdim=True), 1e-8)
+    w, x, y, z = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
+    sx = donor_scales * eps
+    rx = torch.stack([
+        (1 - 2 * (y * y + z * z)) * sx[:, 0] + 2 * (x * y - w * z) * sx[:, 1]
+        + 2 * (x * z + w * y) * sx[:, 2],
+        2 * (x * y + w * z) * sx[:, 0] + (1 - 2 * (x * x + z * z)) * sx[:, 1]
+        + 2 * (y * z - w * x) * sx[:, 2],
+        2 * (x * z - w * y) * sx[:, 0] + 2 * (y * z + w * x) * sx[:, 1]
+        + (1 - 2 * (x * x + y * y)) * sx[:, 2],
+    ], dim=1)
+    split_shrink = torch.full((), 1.0 / 1.6, device=dev)
+    shrink = torch.where(is_split_donor[source_of], split_shrink, 1.0)
+
+    def refilled(leaf, new):
+        return torch.where(_rows(refill, leaf), new, leaf)
+
+    new_scales_raw = refilled(params.raw_scales,
+                              params.raw_scales[source_of] + torch.log(shrink)[:, None])
+    # Split donors shrink too; scatter only the refilled rows' donors (an
+    # identity row would write False over a donor's True), the rest into
+    # a spare slot n.
+    used = torch.zeros((n + 1,), dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(refill, source_of, n), True)
+    donor_shrinks = used[:n] & is_split_donor
+    new_scales_raw = torch.where(donor_shrinks[:, None],
+                                 new_scales_raw + torch.log(split_shrink), new_scales_raw)
+    new_params = SceneParams(
+        positions=refilled(params.positions, params.positions[source_of] + rx),
+        sh=refilled(params.sh, params.sh[source_of]),
+        raw_opacity=refilled(params.raw_opacity, params.raw_opacity[source_of]),
+        raw_scales=new_scales_raw,
+        quats=refilled(params.quats, donor_quats),
+        time_params=None if params.time_params is None else refilled(
+            params.time_params, params.time_params[source_of]),
+    )
+
+    def reset(moments: SceneParams) -> SceneParams:
+        return SceneParams(*(
+            None if m is None else torch.where(_rows(refill, m), torch.zeros_like(m), m)
+            for m in moments
+        ))
+
+    new_opt_state = opt_state._replace(mu=reset(opt_state.mu), nu=reset(opt_state.nu))
+    info = {"recycled": n_recycle, "dead": n_dead, "eligible": n_eligible}
+    return new_params, new_opt_state, DensifyState.zero(n, device=dev), info
+
+
+# ------------------------------------------------------------------ fitting
+def _drain_losses(pending, out) -> None:
+    """Move a batch of 0-d device losses to ``out`` as floats in one
+    transfer: :func:`fit_scene` keeps each step's loss on the device (a
+    ``float()`` per step would make the host wait for every step)."""
+    if pending:
+        out.extend(torch.stack(pending).tolist())
+        pending.clear()
+
+
+def fit_scene(
+    views,
+    cfg: RenderConfig,
+    params: SceneParams,
+    *,
+    steps: int = 1000,
+    optimizer=None,
+    loss_fn=None,
+    densify_every: int = 0,
+    densify_stop: float = 0.7,
+    prune_scale_ratio: float = 0.1,
+    opacity_reset_every: int = 0,
+    sh_warmup_every: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    log_fn=None,
+    log_every: int = 50,
+    snapshot_fn=None,
+    snapshot_every: int = 0,
+    mesh=None,
+    strip_bounds=None,
+    auto_capacity: bool = True,
+    resume_from: Optional[str] = None,
+    zero_sh_rest: Optional[bool] = None,
+):
+    """The 3DGS training loop as one call, on the params' device.
+
+    ``views`` are ``(CameraParams, target)`` pairs or ``(CameraParams,
+    target, time)`` triples (all alike), cycled round-robin; a target is
+    a planar (3, H, W) float image as :func:`render_for_training` makes.
+    Each step is the densifying step (:func:`_make_step_fn`);
+    :func:`densify_step` runs every ``densify_every`` steps up to
+    ``densify_stop·steps`` (seeded with the step, and with a size prune
+    at ``prune_scale_ratio`` × the camera rig's radius), then the
+    periodic :func:`reset_opacity`, and checkpoints every
+    ``checkpoint_every`` steps (and at the end) under
+    ``checkpoint_dir/step_NNNNNN``. The optimizer defaults to
+    :func:`make_3dgs_optimizer` with its position schedule over
+    ``steps``.
+
+    Losses stay on the device and are drained in one transfer at each
+    log (every ``log_every`` steps, ``log_fn(step, loss)``), snapshot
+    (``snapshot_fn(step, params, loss)`` every ``snapshot_every`` steps)
+    or episode boundary and at the end.
+
+    ``sh_warmup_every`` is upstream's ``oneupSHdegree``: rendering starts
+    at SH degree 0 and the degree rises by one before steps
+    ``k·sh_warmup_every``; bands above degree 0 are zeroed at the start
+    (a warning when they held signal, unless ``zero_sh_rest`` says; False
+    keeps them). ``resume_from`` restores a :func:`save_checkpoint`
+    directory (``params`` is the template of the same N; a checkpoint
+    without densify state restores params and moments) and continues
+    every cadence from its step.
+
+    ``mesh`` and ``strip_bounds`` (multi-device fits) are not ported and
+    ``mesh`` raises. ``auto_capacity`` is accepted and not read: the
+    JAX package sizes a static instance buffer, and the port's emission
+    has none, so ``history["overflow"]`` is always ``[]``.
+
+    Returns ``(params, {"losses", "densify", "overflow"})``: per-step
+    losses as floats and per-episode ``{"step", "recycled", "dead",
+    "eligible"}`` records."""
+    del strip_bounds, auto_capacity
+    if mesh is not None:
+        raise NotImplementedError(
+            "fit_scene(mesh=...): multi-device fitting is not ported yet "
+            "(ROADMAP Queue 1 item 6)"
+        )
+    views = list(views)
+    if not views:
+        raise ValueError("fit_scene needs at least one (cam, target) view")
+    arities = {len(v) for v in views}
+    if len(arities) != 1 or arities - {2, 3}:
+        raise ValueError("views must be all (cam, target) or all "
+                         "(cam, target, time)")
+    timed = arities == {3}
+    optimizer = optimizer or make_3dgs_optimizer(position_lr_max_steps=steps)
+    loss_fn = loss_fn or mse_loss
+
+    n = params.positions.shape[0]
+    dev = params.positions.device
+    if (sh_warmup_every and not resume_from and params.sh.shape[1] > 3
+            and zero_sh_rest is not False):
+        if zero_sh_rest is None:
+            rest_mag = float(params.sh[:, 3:].abs().max()) if n else 0.0
+            if rest_mag > 1e-6:
+                warnings.warn(
+                    "fit_scene: sh_warmup_every is zeroing non-zero SH "
+                    f"bands above degree 0 (max |coeff| {rest_mag:.3g}) — "
+                    "a pretrained scene loses its view-dependent color. "
+                    "Pass zero_sh_rest=False to keep the bands, or "
+                    "zero_sh_rest=True to silence this warning.",
+                    RuntimeWarning,
+                )
+        sh = params.sh.clone()
+        sh[:, 3:] = 0.0
+        params = params._replace(sh=sh)
+    if sh_warmup_every and steps < sh_warmup_every * cfg.sh_degree:
+        warnings.warn(
+            f"fit_scene: steps={steps} < sh_warmup_every"
+            f"*sh_degree={sh_warmup_every * cfg.sh_degree}; SH bands "
+            f"above degree {steps // sh_warmup_every} never unlock and "
+            "stay zero (view-independent color on those bands)",
+            RuntimeWarning,
+        )
+    opt_state = optimizer.init(params)
+    dstate = DensifyState.zero(n, device=dev)
+    start_step = 0
+    if resume_from:
+        try:
+            params, opt_state, rd, start_step = load_checkpoint(
+                resume_from, params, opt_state, dstate)
+            dstate = rd
+        except ValueError:
+            # A checkpoint without densify accumulators: params + moments.
+            params, opt_state, _, start_step = load_checkpoint(
+                resume_from, params, opt_state)
+    sh_target = cfg.sh_degree
+    if sh_warmup_every:
+        cfg = dataclasses.replace(
+            cfg, sh_degree=min(start_step // sh_warmup_every, sh_target))
+    step_fn = _make_step_fn(cfg, optimizer, loss_fn, timed=timed, densify=True)
+    # Upstream's size prune is relative to the camera rig's extent (its
+    # cameras_extent): the radius of the view-position cloud.
+    prune_scale = None
+    if prune_scale_ratio:
+        cam_pos = np.stack([v[0].position.detach().cpu().numpy() for v in views])
+        rig = float(np.linalg.norm(cam_pos - cam_pos.mean(axis=0), axis=1).max())
+        prune_scale = prune_scale_ratio * (rig or 1.0)
+    losses, pending, episodes = [], [], []
+    for s in range(start_step, steps):
+        if (sh_warmup_every and cfg.sh_degree < sh_target
+                and (s + 1) % sh_warmup_every == 0):
+            # Unlock the next band before this step renders (upstream's
+            # oneupSHdegree at the top of the iteration).
+            cfg = dataclasses.replace(cfg, sh_degree=cfg.sh_degree + 1)
+            step_fn = _make_step_fn(cfg, optimizer, loss_fn, timed=timed, densify=True)
+        view = views[s % len(views)]
+        params, opt_state, dstate, loss, _ = step_fn(
+            params, opt_state, dstate, view[0], view[1],
+            *((float(view[2]),) if timed else ()))
+        pending.append(loss)
+        done = s + 1
+        episode = (densify_every and done % densify_every == 0
+                   and done <= densify_stop * steps)
+        boundary = done % max(log_every, 1) == 0 or done == steps or episode
+        if episode:
+            params, opt_state, dstate, info = densify_step(
+                params, opt_state, dstate, seed=done, prune_scale=prune_scale)
+            keys = sorted(info)
+            counts = torch.stack([info[k] for k in keys]).tolist()
+            episodes.append({"step": done, **dict(zip(keys, counts))})
+        if opacity_reset_every and done % opacity_reset_every == 0 and done < steps:
+            params, opt_state = reset_opacity(params, opt_state)
+        if checkpoint_dir and checkpoint_every and (
+                done % checkpoint_every == 0 or done == steps):
+            save_checkpoint(os.path.join(checkpoint_dir, f"step_{done:06d}"),
+                            params, opt_state, dstate, step=done)
+        if boundary or (snapshot_fn and snapshot_every and done % snapshot_every == 0):
+            _drain_losses(pending, losses)
+        if log_fn and done % max(log_every, 1) == 0:
+            log_fn(done, losses[-1])
+        if snapshot_fn and snapshot_every and done % snapshot_every == 0:
+            snapshot_fn(done, params, losses[-1])
+    _drain_losses(pending, losses)
+    return params, {"losses": losses, "densify": episodes, "overflow": []}
+
+
+def evaluate(params: Optional[SceneParams], views, cfg: RenderConfig, render_fn=None,
+             per_view_fn=None):
+    """Fit quality against views (:func:`fit_scene`'s format): per-view
+    and mean PSNR and SSIM of the training render (or of ``render_fn(cam,
+    time_value) → (3, H, W)``, where ``params`` may be None).
+    ``per_view_fn(i, fb, target, row)`` runs after each view. Returns
+    ``{"psnr", "ssim", "per_view"}``."""
+    rows = []
+    for i, v in enumerate(views):
+        cam, target = v[0], v[1]
+        tv = float(v[2]) if len(v) == 3 else None
+        with torch.no_grad():
+            fb = (render_for_training(params, cam, cfg, tv) if render_fn is None
+                  else render_fn(cam, tv))
+            mse, ss = torch.stack([torch.mean((fb - target) ** 2),
+                                   ssim(fb, target)]).tolist()
+        row = {"psnr": 10.0 * math.log10(1.0 / max(mse, 1e-12)), "ssim": ss}
+        rows.append(row)
+        if per_view_fn is not None:
+            per_view_fn(i, fb, target, row)
+    if not rows:
+        raise ValueError("evaluate: no views")
+    return {
+        "psnr": sum(r["psnr"] for r in rows) / len(rows),
+        "ssim": sum(r["ssim"] for r in rows) / len(rows),
+        "per_view": rows,
+    }
+
+
+def psnr(a, b, peak: float = 1.0) -> float:
+    """PSNR in dB of two arrays (the JAX package's ``oracle.psnr``),
+    computed in float64 with NumPy; ``inf`` when they are equal."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    if mse == 0.0:
+        return float("inf")
+    return 10.0 * math.log10(peak * peak / mse)
+
+
+# ----------------------------------------------------------------- datasets
+def _poses_path(dataset_dir: str) -> str:
+    path = os.path.join(dataset_dir, "poses.json")
+    if not os.path.isfile(path):
+        raise NotImplementedError(
+            f"{dataset_dir}: no poses.json; COLMAP and Blender datasets are "
+            "not ported yet (ROADMAP Queue 1 item 3)"
+        )
+    return path
+
+
+def _read_image(path: str) -> np.ndarray:
+    if path.endswith(".npy"):
+        return np.load(path)
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def dataset_image_shape(dataset_dir: str) -> Tuple[int, int]:
+    """(height, width) of a ``poses.json`` dataset's first target, read
+    without loading the dataset."""
+    with open(_poses_path(dataset_dir)) as fh:
+        records = json.load(fh)
+    if not records:
+        raise ValueError(f"{dataset_dir}: poses.json has no views")
+    tpath = os.path.join(dataset_dir, records[0]["target"])
+    if tpath.endswith(".npy"):
+        shape = np.load(tpath, mmap_mode="r").shape
+    else:
+        shape = _read_image(tpath).shape
+    return int(shape[0]), int(shape[1])
+
+
+def load_views(dataset_dir: str, cfg: RenderConfig, k_sigma: float = 3.0,
+               stride: int = 1, split: Optional[str] = None, device="cuda"):
+    """A ``poses.json`` dataset as :func:`fit_scene` views on ``device``.
+
+    ``poses.json`` lists records with ``c2w`` (3×4 or 4×4), ``target`` (a
+    file name), ``fov_y`` or ``fy``, and optional ``near``, ``far``,
+    ``convention`` (default opencv) and ``time`` (making the view a timed
+    triple). ``stride`` keeps every Nth record before any target is read.
+    Targets are ``.npy`` (H, W, 3+) float or uint8 arrays or image files
+    (PIL); each must be ``cfg.height × cfg.width`` and becomes the planar
+    (3, H, W) float32 bottom-up layout :func:`render_for_training`
+    produces. A directory without ``poses.json`` (COLMAP, Blender) raises
+    ``NotImplementedError``; ``split`` applies only to Blender datasets."""
+    from gaussianrenderer_tpu_torch.scene.camera import Camera
+
+    poses = _poses_path(dataset_dir)
+    if split is not None:
+        raise ValueError(
+            "split= selects transforms_{split}.json and applies only to "
+            "Blender/NeRF-synthetic datasets; poses.json datasets split "
+            "by stride"
+        )
+    dev = resolve_device(device)
+    with open(poses) as fh:
+        records = json.load(fh)
+    views = []
+    for rec in records[:: max(stride, 1)]:
+        cam = Camera.from_pose(
+            np.asarray(rec["c2w"], np.float32), fov_y_deg=rec.get("fov_y"),
+            fy=rec.get("fy"), height=cfg.height, aspect=cfg.width / cfg.height,
+            near=rec.get("near", 0.1), far=rec.get("far", 100.0),
+            convention=rec.get("convention", "opencv"),
+        )
+        img = _read_image(os.path.join(dataset_dir, rec["target"]))
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        if img.ndim != 3 or img.shape[:2] != (cfg.height, cfg.width) or img.shape[2] < 3:
+            raise ValueError(
+                f"{rec['target']}: expected ({cfg.height}, {cfg.width}, 3), "
+                f"got {img.shape}"
+            )
+        # (H, W, 3) top-down image → planar (3, H, W) bottom-up target.
+        target = torch.from_numpy(np.ascontiguousarray(
+            img[::-1, :, :3].transpose(2, 0, 1), dtype=np.float32)).to(dev)
+        view = (cam.params(k_sigma, device=dev), target)
+        views.append(view + (float(rec["time"]),) if "time" in rec else view)
+    return views
+
+
+# ------------------------------------------------------------- checkpoints
+_CHECKPOINT_FILE = "state.pt"
+
+
+def _leaves(tree) -> dict:
+    return {k: None if v is None else v.detach().cpu() for k, v in tree._asdict().items()}
+
+
+def save_checkpoint(path: str, params: SceneParams, opt_state: Optional[AdamState] = None,
+                    densify_state: Optional[DensifyState] = None, step: int = 0) -> None:
+    """Write the training state (params, Adam moments, densify
+    accumulators, step) to the directory ``path`` with ``torch.save``
+    (one ``state.pt`` of CPU tensors). The JAX package writes Orbax
+    checkpoints: the two formats do not read each other."""
+    state = {"params": _leaves(params), "step": int(step)}
+    if opt_state is not None:
+        state["opt_state"] = {"count": opt_state.count.detach().cpu(),
+                              "mu": _leaves(opt_state.mu), "nu": _leaves(opt_state.nu)}
+    if densify_state is not None:
+        state["densify"] = _leaves(densify_state)
+    os.makedirs(path, exist_ok=True)
+    torch.save(state, os.path.join(path, _CHECKPOINT_FILE))
+
+
+def _restore(path: str, saved: dict, template):
+    """``template``'s container with the saved tensors on its devices."""
+    out = {}
+    for name, t in template._asdict().items():
+        v = saved.get(name)
+        if t is None or v is None:
+            if (t is None) != (v is None):
+                raise ValueError(f"checkpoint {path}: {name} is "
+                                 f"{'absent' if v is None else 'present'} on disk "
+                                 "but not in the template")
+            out[name] = None
+            continue
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint {path}: {name} has shape {tuple(v.shape)}, "
+                             f"the template {tuple(t.shape)}")
+        out[name] = v.to(t.device)
+    return type(template)(**out)
+
+
+def load_checkpoint(path: str, params: SceneParams, opt_state: Optional[AdamState] = None,
+                    densify_state: Optional[DensifyState] = None):
+    """Restore a :func:`save_checkpoint` directory. The passed states are
+    templates (the same budget N; a shape that differs raises
+    ``ValueError``) and the tensors land on their devices. Returns
+    ``(params, opt_state, densify, step)``, None for a template not
+    passed: a full checkpoint restores params alone, and a template for a
+    part the checkpoint lacks raises ``ValueError``."""
+    path = os.path.abspath(path)
+    state = torch.load(os.path.join(path, _CHECKPOINT_FILE), map_location="cpu",
+                       weights_only=True)
+    wanted = {"params", "step"} | ({"opt_state"} if opt_state is not None else set()) | (
+        {"densify"} if densify_state is not None else set())
+    missing = wanted - set(state)
+    if missing:
+        raise ValueError(f"checkpoint {path} has no {sorted(missing)} "
+                         f"(on disk: {sorted(state)})")
+    params = _restore(path, state["params"], params)
+    if opt_state is not None:
+        saved = state["opt_state"]
+        opt_state = AdamState(saved["count"].to(opt_state.count.device),
+                              _restore(path, saved["mu"], opt_state.mu),
+                              _restore(path, saved["nu"], opt_state.nu))
+    if densify_state is not None:
+        densify_state = _restore(path, state["densify"], densify_state)
+    return params, opt_state, densify_state, int(state["step"])
