@@ -97,10 +97,40 @@ its elapsed seconds:
                       checkpoints (exit 0, PSNR lines, a PLY of the same
                       N), again resumed from step 20; apps/train_test with
                       its defaults (exit 0);
-12. train-bench-shape
+12. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
+                      port's load_scene onto the card (load timed); 10
+                      frames of an orbit at 1920×1080 through
+                      render_frame (median frame ms, instances, the
+                      compositor's launches); the compositor against its
+                      plain version on 32 tiles of the first frame
+                      (without and with an alpha row), its ms and bound;
+                      the scene saved and reloaded as q16 .gsz, q8 .gsz
+                      and .splat (save and load timed), each reload's
+                      first frame scored against the original's: q16
+                      > 55 dB, .splat > 35 dB at SH degree 0, q8 printed;
+13. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
+                      from 12 orbit views of data/trained_surface_100k.gsz
+                      at 1280×720 and a points3D cloud of 20,000 of its
+                      positions and DC colours (its read timed, and a
+                      10⁶-point file's); apps/fit with SfM init (the
+                      default, checked by its "SfM init:" line), 100,000
+                      splats, 60 steps, densify every 20, every 4th view
+                      held out; apps/eval of the fitted PLY through the
+                      train and the packed path (exit 0, finite PSNR,
+                      overflow_views 0); apps/edit to a pruned .gsz
+                      (--min-opacity 0.005) and apps/eval of it; each
+                      app's wall time and the kernels' launches in them;
+14. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
+                      views) and transforms_test.json (4) with RGBA PNGs
+                      of the same scene at 800×800 (alpha from the
+                      render's alpha row, camera_angle_x); apps/fit
+                      refining the scene (--init, --background white, 40
+                      steps) and apps/eval of the test split over white
+                      (exit 0, finite PSNR);
+15. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-13. gemm            — the GEMM harness: the port's apps/matrix_test at
+16. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -113,7 +143,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-14. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+17. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -121,7 +151,7 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-15. sort-harness    — the port's apps/onesweep and apps/radix_test with
+18. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
@@ -289,6 +319,25 @@ BLOCK_SORT_C = 5_586_944
 #: global passes. A run that does not divide BLOCK_SORT_C takes C rounded
 #: up to its multiple.
 BLOCK_SORT_RUNS = (256, 2048, 4096, 8192, 16384, 32768, 65536)
+# The capture phases: scene formats on the repo's largest scene, then a
+# COLMAP and a NeRF-synthetic capture rendered from the repo's surface
+# scene, fit, scored and edited through the apps.
+SCENE_2M = os.path.join(REPO, "data", "trained_2m.gsz")
+SCENE_SURFACE = os.path.join(REPO, "data", "trained_surface_100k.gsz")
+SCENE_2M_SPLATS = 1_999_994
+FORMATS_H, FORMATS_W = 1080, 1920
+FORMATS_FRAMES = 10
+FORMATS_Q16_MIN_PSNR = 55.0  # tests/test_compact.py:95
+FORMATS_SPLAT_MIN_PSNR = 35.0  # at SH degree 0, tests/test_compact.py:243-263
+COLMAP_VIEWS = 12
+COLMAP_H, COLMAP_W = 720, 1280
+COLMAP_POINTS = 20_000
+COLMAP_FIT_N = 100_000
+COLMAP_FIT_STEPS = 60
+POINTS_READ_CAPTURE = 1_000_000  # a capture-scale points3D.bin, read and timed
+BLENDER_SIZE = 800  # the published NeRF-synthetic frame
+BLENDER_TRAIN, BLENDER_TEST = 12, 4
+BLENDER_FIT_STEPS = 40
 #: Operations per compare-exchange pair and substage: one compare, and a
 #: select for each of the 9 rows of both outputs.
 OPS_COMPARE_EXCHANGE = 19
@@ -670,34 +719,9 @@ def phase_kernel_vs_plain(torch, gt, big):
     # without and with an alpha row (the dead-warp stop runs only without).
     scene3m, cam3m, cfg3m = big
     inst = packed_frame(gt, scene3m, cam3m, cfg3m, False)
-    heavy = torch.topk(inst.tile_count, 16).indices.tolist()
-    gen = torch.Generator().manual_seed(0)
-    rest = [t for t in torch.randperm(cfg3m.num_tiles, generator=gen).tolist()
-            if t not in heavy][:16]
-    tiles = heavy + rest
+    err, tiles, geo, in_img = compare_frame_tiles(torch, gt, inst, cfg3m, "1080p 3M")
+    worst = max(worst, err)
     sel = torch.as_tensor(tiles, device=DEVICE)
-    geo = dict(tiles_x=cfg3m.tiles_x, tile_w=cfg3m.tile_w, tile_h=cfg3m.tile_h)
-    # Plain blocks include pixels past the image edge; the kernel writes
-    # only in-image pixels, which tile_blocks pads with zeros.
-    in_img = tile_blocks(torch.ones((1, cfg3m.height, cfg3m.width), device=DEVICE),
-                         tiles, **geo)
-    for out_alpha in (False, True):
-        name = "1080p 3M: 32 tiles" + (" alpha" if out_alpha else "")
-        kw = comp_kwargs(cfg3m, out_alpha)
-        rows = ("r", "g", "b", "alpha")[:3 + out_alpha]
-        k_walked = torch.zeros(cfg3m.num_tiles, dtype=torch.int32, device=DEVICE)
-        p_walked = torch.zeros_like(k_walked)
-        k_full = gt.composite_tiles_packed(
-            inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=k_walked,
-            **kw
-        )
-        p_tiles = composite_tiles_packed_plain(
-            inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles,
-            chunks_walked=p_walked, **kw
-        )
-        worst = max(worst, compare(torch, name, tile_blocks(k_full, tiles, **geo),
-                                   p_tiles * in_img, rows))
-        check_walked(torch, name, k_walked[sel], p_walked[sel])
     kw = comp_kwargs(cfg3m, False)
     k_full, k_sat = gt.composite_tiles_packed(
         inst.packed_feats, inst.tile_start, inst.tile_count, with_sat=True, **kw
@@ -713,6 +737,48 @@ def phase_kernel_vs_plain(torch, gt, big):
     check_sat(torch, "1080p 3M: 32 tiles with_sat",
               k_sat.view(cfg3m.num_tiles, n_blk)[sel].reshape(-1), p_sat)
     return worst, inst, tiles
+
+
+def compare_frame_tiles(torch, gt, inst, cfg, label):
+    """The compositor kernel against its plain version on 32 tiles of one
+    frame's packed instances (the 16 with the most instances, 16 seeded
+    random), without and with an alpha row (the dead-warp stop runs only
+    without), chunks walked equal. Returns (worst max |kernel − plain|,
+    tiles, tile geometry, in-image mask of the tiles' blocks)."""
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
+        composite_tiles_packed_plain,
+        tile_blocks,
+    )
+
+    heavy = torch.topk(inst.tile_count, 16).indices.tolist()
+    gen = torch.Generator().manual_seed(0)
+    rest = [t for t in torch.randperm(cfg.num_tiles, generator=gen).tolist()
+            if t not in heavy][:16]
+    tiles = heavy + rest
+    sel = torch.as_tensor(tiles, device=DEVICE)
+    geo = dict(tiles_x=cfg.tiles_x, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+    # Plain blocks include pixels past the image edge; the kernel writes
+    # only in-image pixels, which tile_blocks pads with zeros.
+    in_img = tile_blocks(torch.ones((1, cfg.height, cfg.width), device=DEVICE), tiles, **geo)
+    worst = 0.0
+    for out_alpha in (False, True):
+        name = f"{label}: 32 tiles" + (" alpha" if out_alpha else "")
+        kw = comp_kwargs(cfg, out_alpha)
+        rows = ("r", "g", "b", "alpha")[:3 + out_alpha]
+        k_walked = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=DEVICE)
+        p_walked = torch.zeros_like(k_walked)
+        k_full = gt.composite_tiles_packed(
+            inst.packed_feats, inst.tile_start, inst.tile_count, chunks_walked=k_walked,
+            **kw
+        )
+        p_tiles = composite_tiles_packed_plain(
+            inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles,
+            chunks_walked=p_walked, **kw
+        )
+        worst = max(worst, compare(torch, name, tile_blocks(k_full, tiles, **geo),
+                                   p_tiles * in_img, rows))
+        check_walked(torch, name, k_walked[sel], p_walked[sel])
+    return worst, tiles, geo, in_img
 
 
 def check_walked(torch, name, k_walked, p_walked):
@@ -1928,6 +1994,329 @@ def phase_train_bench(torch, gt, card, steps=10, n=500_000, size=800):
     return res
 
 
+# ----------------------------------------------------------- capture phases
+def capture_orbit(gt, n, aspect, offset=0.0, fov=60.0):
+    """``n`` cameras on a circle of radius 5.5 around the origin at
+    heights 1.0 and 2.4 in turn (tools/make_capture_demo.py's rig)."""
+    cams = []
+    for i in range(n):
+        ang = 2.0 * math.pi * (i + offset) / n
+        cams.append(look_camera(gt, (5.5 * math.sin(ang), (1.0, 2.4)[i % 2],
+                                     5.5 * math.cos(ang)), aspect, fov=fov))
+    return cams
+
+
+def db(p):
+    """A psnr_t value as a number for a gate."""
+    return math.inf if p == "inf" else p
+
+
+def phase_formats_2m(torch, gt, card):
+    """data/trained_2m.gsz (the repo's largest scene, 1,999,994 splats)
+    loaded by load_scene onto the card; 10 frames of an orbit at 1920×1080
+    through render_frame (the compositor's launches counted over them);
+    the compositor against its plain version on 32 tiles of the first
+    frame; then the scene written and reloaded as q16 .gsz, q8 .gsz and
+    .splat, each save and load timed and each reload's first frame
+    scored against the original's (q16 > 55 dB; .splat > 35 dB at SH
+    degree 0; q8 printed)."""
+    from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
+        composite_tiles_packed_plain,
+    )
+    from gaussianrenderer_tpu_torch.scene import compact
+
+    comp = gt.composite_tiles_packed
+    scene, load_ms = host_ms(torch, lambda: gt.load_scene(SCENE_2M, max_sh_degree=None,
+                                                          device=DEVICE))
+    cfg = gt.RenderConfig(height=FORMATS_H, width=FORMATS_W, sh_degree=scene.sh_degree,
+                          compositor="packed")
+    cams = [look_camera(gt, (5.515 * math.sin(a), 1.7, 5.515 * math.cos(a)),
+                        FORMATS_W / FORMATS_H)
+            for a in (math.radians(45.0 + 36.0 * i) for i in range(FORMATS_FRAMES))]
+    camps = [c.params(cfg.k_sigma, device=DEVICE) for c in cams]
+    comp.launches = gt.table_lookup.launches = 0
+    gt.render_frame(scene, camps[0], cfg)  # warm-up
+    frame_ms, instances, fbs = [], [], []
+    for camp in camps:
+        (fb, st), ms = host_ms(torch, lambda: gt.render_frame(scene, camp, cfg))
+        frame_ms.append(ms)
+        instances.append(int(st.num_instances))
+        fbs.append(fb)
+    launches = comp.launches
+    check(launches == FORMATS_FRAMES + 1 and gt.table_lookup.launches == 0,
+          f"formats-2m: {launches} compositor and {gt.table_lookup.launches} lookup launches")
+    for i, fb in enumerate(fbs):
+        check(fb.shape == (3, FORMATS_H, FORMATS_W) and bool(torch.isfinite(fb).all())
+              and 0.0 < float(fb.mean()) < 1.0, f"formats-2m: frame {i}")
+    ref = fbs[0]
+    del fbs
+
+    inst = packed_frame(gt, scene, cams[0], cfg, False)
+    max_err, tiles, _, _ = compare_frame_tiles(torch, gt, inst, cfg, "trained_2m 1080p")
+    kw = comp_kwargs(cfg, False)
+    kernel_ms = cuda_ms(torch, lambda: comp(inst.packed_feats, inst.tile_start,
+                                            inst.tile_count, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: composite_tiles_packed_plain(
+        inst.packed_feats, inst.tile_start, inst.tile_count, tiles=tiles, **kw), 1)
+    bounds = compositor_bounds(torch, inst, cfg)
+    del inst
+
+    d = fit_dir("chip_smoke_formats")
+    cfg0 = dataclasses.replace(cfg, sh_degree=0)
+    ref0 = gt.render_frame(scene, camps[0], cfg0)[0]
+    formats = {}
+    for fmt, ext, save in (("q16", ".gsz", lambda sc, p: compact.save_compact(sc, p, "q16")),
+                           ("q8", ".gsz", lambda sc, p: compact.save_compact(sc, p, "q8")),
+                           ("splat", ".splat", compact.save_splat)):
+        path = os.path.join(d, f"trained_2m_{fmt}{ext}")
+        _, save_ms = host_ms(torch, lambda: save(scene, path))
+        back, reload_ms = host_ms(torch, lambda: gt.load_scene(path, max_sh_degree=None,
+                                                              device=DEVICE))
+        row = {"bytes": os.path.getsize(path), "gaussians": back.num_gaussians,
+               "save_ms": save_ms, "load_ms": reload_ms,
+               "psnr_db": psnr_t(gt.render_frame(back, camps[0], cfg)[0], ref)}
+        if fmt == "splat":
+            row["psnr_db_sh0"] = psnr_t(gt.render_frame(back, camps[0], cfg0)[0], ref0)
+        formats[fmt] = row
+        del back
+        os.remove(path)
+    shutil.rmtree(d)
+    res = {
+        "formats": "data/trained_2m.gsz",
+        "gaussians": scene.num_gaussians,
+        "sh_degree": scene.sh_degree,
+        "load_ms": load_ms,
+        "resolution": f"{FORMATS_W}x{FORMATS_H}",
+        "frame_ms_median": statistics.median(frame_ms),
+        "frame_ms_all": frame_ms,
+        "num_instances_median": int(statistics.median(instances)),
+        "num_instances_all": instances,
+        "kernel_launches": launches,
+        "kernel_ms_frame0": kernel_ms,
+        "plain_ms_32_tiles": plain_ms,
+        "kernel_vs_plain_max_abs": max_err,
+        **bounds,
+        "formats_saved_and_reloaded": formats,
+        "card": card,
+    }
+    out(res)
+    check(scene.num_gaussians == SCENE_2M_SPLATS, f"formats-2m: {scene.num_gaussians} splats")
+    check(db(formats["q16"]["psnr_db"]) > FORMATS_Q16_MIN_PSNR,
+          f"formats-2m: q16 reload at {formats['q16']['psnr_db']} dB")
+    check(db(formats["splat"]["psnr_db_sh0"]) > FORMATS_SPLAT_MIN_PSNR,
+          f"formats-2m: .splat reload at {formats['splat']['psnr_db_sh0']} dB (SH 0)")
+    check(all(r["gaussians"] == scene.num_gaussians for r in formats.values()),
+          f"formats-2m: reloaded counts {formats}")
+    return res
+
+
+def app_lines(text, prefix):
+    return [line for line in text.splitlines() if line.startswith(prefix)]
+
+
+def train_counts(tt):
+    return {"tile_train_fwd": tt.train_forward.launches,
+            "tile_train_bwd": tt.train_backward.launches}
+
+
+def count_diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def run_eval(eval_app, argv, label):
+    """apps/eval with ``argv``: (its JSON report, wall seconds); checks
+    exit 0 and a finite PSNR."""
+    t0 = time.perf_counter()
+    rc, text = run_app(eval_app, argv)
+    secs = time.perf_counter() - t0
+    log(text)
+    check(rc == 0, f"{label}: apps/eval exited {rc}")
+    report = json.loads(text.strip().splitlines()[-1])
+    check(math.isfinite(report["psnr"]) and math.isfinite(report["ssim"]),
+          f"{label}: apps/eval report {report}")
+    return report, secs
+
+
+def phase_colmap_fit(torch, gt, card):
+    """A COLMAP capture: 12 orbit views of data/trained_surface_100k.gsz at
+    1280×720 rendered by the port and written with save_colmap_workspace,
+    with a points3D cloud of 20,000 of the scene's positions and their DC
+    colours; apps/fit on it (SfM init, the default for COLMAP), apps/eval
+    of the fitted PLY through the train and the packed path, apps/edit to
+    a pruned .gsz and apps/eval of that. Each app's wall time, the
+    points3D.bin read time (and a capture-scale 10⁶-point file's), and the
+    kernels' launches in the apps (counts set to 0 just before)."""
+    import numpy as np
+
+    from gaussianrenderer_tpu_torch.apps import edit as edit_app
+    from gaussianrenderer_tpu_torch.apps import eval as eval_app
+    from gaussianrenderer_tpu_torch.apps import fit
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+    from gaussianrenderer_tpu_torch.ops.sh import SH_C0
+    from gaussianrenderer_tpu_torch.scene import colmap
+
+    root = fit_dir("chip_smoke_colmap")
+    data = os.path.join(root, "dataset")
+    scene = gt.load_scene(SCENE_SURFACE, max_sh_degree=None, device=DEVICE)
+    cfg = gt.RenderConfig(height=COLMAP_H, width=COLMAP_W, sh_degree=scene.sh_degree)
+    cams = capture_orbit(gt, COLMAP_VIEWS, COLMAP_W / COLMAP_H)
+    frames = [gt.framebuffer_to_image(gt.render_frame(scene, c.params(cfg.k_sigma, device=DEVICE),
+                                                      cfg)[0]) for c in cams]
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.choice(scene.num_gaussians, COLMAP_POINTS, replace=False))
+    xyz = scene.positions[idx.to(DEVICE)].cpu().numpy()
+    rgb = (0.5 + SH_C0 * scene.sh[idx.to(DEVICE), :3]).clamp(0.0, 1.0).cpu().numpy()
+    colmap.save_colmap_workspace(data, cams, frames, points_xyz=xyz, points_rgb=rgb)
+    del frames
+    t0 = time.perf_counter()
+    pts = colmap.read_points3d_bin(os.path.join(data, "sparse", "0", "points3D.bin"))
+    points_read_s = time.perf_counter() - t0
+    check(pts[0].shape == (COLMAP_POINTS, 3), f"colmap-fit: points {pts[0].shape}")
+    big = os.path.join(root, "points3D_capture.bin")
+    colmap.write_points3d_bin(big, rng.normal(0, 3, (POINTS_READ_CAPTURE, 3)),
+                              rng.integers(0, 256, (POINTS_READ_CAPTURE, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    big_pts = colmap.read_points3d_bin(big)
+    points_read_capture_s = time.perf_counter() - t0
+    check(big_pts[0].shape == (POINTS_READ_CAPTURE, 3), "colmap-fit: capture-scale points")
+    del big_pts
+    os.remove(big)
+
+    ply, gsz = os.path.join(root, "fitted.ply"), os.path.join(root, "out.gsz")
+    held = ["--holdout-every", "4"]
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    gt.composite_tiles_packed.launches = 0
+    t0 = time.perf_counter()
+    rc, text = run_app(fit, [data, "--n", str(COLMAP_FIT_N), "--steps", str(COLMAP_FIT_STEPS),
+                             "--densify-every", "20", *held, "--out", ply])
+    fit_s = time.perf_counter() - t0
+    log(text)
+    check(rc == 0, f"colmap-fit: apps/fit exited {rc}")
+    sfm = app_lines(text, "SfM init:")
+    check(sfm == [f"SfM init: {COLMAP_POINTS} points -> {COLMAP_FIT_N} splats"],
+          f"colmap-fit: SfM init lines {sfm}")
+    final, heldout = app_lines(text, "final: PSNR"), app_lines(text, "held-out: PSNR")
+    check(len(final) == 1 and len(heldout) == 1 and os.path.isfile(ply),
+          "colmap-fit: no final/held-out lines or no PLY")
+    n_train, n_held = COLMAP_VIEWS - len(range(0, COLMAP_VIEWS, 4)), len(range(0, COLMAP_VIEWS, 4))
+    fit_calls = train_counts(tt)
+    check(fit_calls == {"tile_train_fwd": COLMAP_FIT_STEPS + n_train + n_held,
+                        "tile_train_bwd": COLMAP_FIT_STEPS},
+          f"colmap-fit: train kernel calls {fit_calls} in apps/fit")
+    before = train_counts(tt)
+    rep_train, eval_train_s = run_eval(eval_app, [ply, data, *held], "colmap-fit train")
+    eval_calls = count_diff(train_counts(tt), before)
+    check(eval_calls == {"tile_train_fwd": n_held, "tile_train_bwd": 0},
+          f"colmap-fit: apps/eval --path train kernel calls {eval_calls}")
+    rep_packed, eval_packed_s = run_eval(eval_app, [ply, data, *held, "--path", "packed"],
+                                         "colmap-fit packed")
+    packed_launches = gt.composite_tiles_packed.launches
+    check(rep_packed["overflow_views"] == 0 and packed_launches == n_held,
+          f"colmap-fit: packed report {rep_packed}, {packed_launches} compositor launches")
+    t0 = time.perf_counter()
+    rc, text_e = run_app(edit_app, [gsz, ply, "--min-opacity", "0.005"])
+    edit_s = time.perf_counter() - t0
+    log(text_e)
+    check(rc == 0 and os.path.isfile(gsz), f"colmap-fit: apps/edit exited {rc}")
+    rep_gsz, eval_gsz_s = run_eval(eval_app, [gsz, data, *held], "colmap-fit edited")
+    launches = {**train_counts(tt), "tile_render2": gt.composite_tiles_packed.launches}
+    shutil.rmtree(root)
+    res = {
+        "colmap_fit": (f"{COLMAP_VIEWS} views of data/trained_surface_100k.gsz at "
+                       f"{COLMAP_W}x{COLMAP_H}, {COLMAP_POINTS} SfM points"),
+        "fit_argv": (f"--n {COLMAP_FIT_N} --steps {COLMAP_FIT_STEPS} --densify-every 20 "
+                     "--holdout-every 4"),
+        "sfm_line": sfm[0], "final": final[0], "held_out": heldout[0],
+        "eval_train": rep_train, "eval_packed": rep_packed,
+        "edit": app_lines(text_e, "prune:") + app_lines(text_e, "wrote"),
+        "eval_edited_gsz": rep_gsz,
+        "edited_psnr_change_db": rep_gsz["psnr"] - rep_train["psnr"],
+        "app_s": {"fit": fit_s, "eval_train": eval_train_s, "eval_packed": eval_packed_s,
+                  "edit": edit_s, "eval_gsz": eval_gsz_s},
+        "points3d_read_s": points_read_s,
+        "points3d_read_capture_s": points_read_capture_s,
+        "points3d_capture_points": POINTS_READ_CAPTURE,
+        "kernel_launches": launches,
+        "card": card,
+    }
+    out(res)
+    return res
+
+
+def phase_blender_fit(torch, gt, card):
+    """A NeRF-synthetic capture: transforms_train.json (12 views) and
+    transforms_test.json (4 views) with RGBA PNGs of
+    data/trained_surface_100k.gsz at 800×800 (alpha from the render's
+    alpha row, straight colour), ``camera_angle_x`` intrinsics; apps/fit
+    refining the scene over a white background, apps/eval of the test
+    split over white."""
+    import numpy as np
+    from PIL import Image
+
+    from gaussianrenderer_tpu_torch.apps import eval as eval_app
+    from gaussianrenderer_tpu_torch.apps import fit
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    root = fit_dir("chip_smoke_blender")
+    data = os.path.join(root, "dataset")
+    scene = gt.load_scene(SCENE_SURFACE, max_sh_degree=None, device=DEVICE)
+    cfg = gt.RenderConfig(height=BLENDER_SIZE, width=BLENDER_SIZE, sh_degree=scene.sh_degree,
+                          output_alpha=True)
+    fov = 60.0
+    for split, n, offset in (("train", BLENDER_TRAIN, 0.0), ("test", BLENDER_TEST, 0.5)):
+        os.makedirs(os.path.join(data, split))
+        frames = []
+        for i, cam in enumerate(capture_orbit(gt, n, 1.0, offset=offset, fov=fov)):
+            fb, _ = gt.render_frame(scene, cam.params(cfg.k_sigma, device=DEVICE), cfg)
+            alpha = fb[3:4]
+            straight = torch.where(alpha > 0, fb[:3] / alpha.clamp_min(1e-12), 0.0)
+            rgba = torch.cat([straight.clamp(0.0, 1.0), alpha.clamp(0.0, 1.0)])
+            img = (rgba.permute(1, 2, 0).flip(0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+            Image.fromarray(img, "RGBA").save(os.path.join(data, split, f"r_{i}.png"))
+            # OpenGL camera→world: columns right, up, backward (f_axis), position.
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = cam.r_axis, cam.u_axis, cam.f_axis
+            c2w[:3, 3] = cam.position
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
+        with open(os.path.join(data, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": math.radians(fov), "frames": frames}, fh)
+    ply = os.path.join(root, "fitted.ply")
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    t0 = time.perf_counter()
+    rc, text = run_app(fit, [data, "--init", SCENE_SURFACE, "--background", "white",
+                             "--steps", str(BLENDER_FIT_STEPS), "--out", ply])
+    fit_s = time.perf_counter() - t0
+    log(text)
+    check(rc == 0 and os.path.isfile(ply), f"blender-fit: apps/fit exited {rc}")
+    final = app_lines(text, "final: PSNR")
+    views_line = text.splitlines()[0]
+    check(len(final) == 1 and views_line == f"{BLENDER_TRAIN} train / 0 held-out views at "
+          f"{BLENDER_SIZE}x{BLENDER_SIZE}", f"blender-fit: apps/fit lines {views_line!r} {final}")
+    fit_calls = train_counts(tt)
+    check(fit_calls == {"tile_train_fwd": BLENDER_FIT_STEPS + BLENDER_TRAIN,
+                        "tile_train_bwd": BLENDER_FIT_STEPS},
+          f"blender-fit: train kernel calls {fit_calls} in apps/fit")
+    rep, eval_s = run_eval(eval_app, [ply, data, "--split", "test", "--background", "white"],
+                           "blender-fit")
+    check(rep["views"] == BLENDER_TEST, f"blender-fit: eval report {rep}")
+    launches = train_counts(tt)
+    shutil.rmtree(root)
+    res = {
+        "blender_fit": (f"{BLENDER_TRAIN} train + {BLENDER_TEST} test RGBA views of "
+                        f"data/trained_surface_100k.gsz at {BLENDER_SIZE}x{BLENDER_SIZE}"),
+        "fit_argv": f"--init data/trained_surface_100k.gsz --background white --steps "
+                    f"{BLENDER_FIT_STEPS}",
+        "final": final[0],
+        "loss": app_lines(text, "loss:"),
+        "eval_test_split": rep,
+        "app_s": {"fit": fit_s, "eval": eval_s},
+        "kernel_launches": launches,
+        "card": card,
+    }
+    out(res)
+    return res
+
+
 # ------------------------------------------------------------ harness phases
 def run_app(mod, argv):
     """``mod.main()`` with ``argv`` as its arguments: (exit code, stdout)."""
@@ -2341,6 +2730,17 @@ def main() -> int:
     del scene500
     torch.cuda.empty_cache()
 
+    with Phase("formats-2m", torch):
+        formats_res = phase_formats_2m(torch, gt, card)
+        torch.cuda.empty_cache()
+
+    with Phase("colmap-fit", torch):
+        colmap_res = phase_colmap_fit(torch, gt, card)
+
+    with Phase("blender-fit", torch):
+        blender_res = phase_blender_fit(torch, gt, card)
+        torch.cuda.empty_cache()
+
     with Phase("train-bench-shape", torch):
         bench_res = phase_train_bench(torch, gt, card)
 
@@ -2359,8 +2759,13 @@ def main() -> int:
         "route": "cuda",
         "source": "gaussianrenderer_tpu_torch/csrc/tile_render2.cu",
         "replaces": "gaussianrenderer_tpu/ops/pallas/tile_render2.py:158",
-        "launches": res3m["kernel_launches"],
-        "max_abs_err": max_err,
+        "launches": (res3m["kernel_launches"] + formats_res["kernel_launches"]
+                     + colmap_res["kernel_launches"]["tile_render2"]),
+        "launches_by_phase": {"full-3m": res3m["kernel_launches"],
+                              "formats-2m": formats_res["kernel_launches"],
+                              "colmap-fit (apps/eval --path packed)":
+                                  colmap_res["kernel_launches"]["tile_render2"]},
+        "max_abs_err": max(max_err, formats_res["kernel_vs_plain_max_abs"]),
         "ms": res3m["kernel_ms_median"],
         "plain_ms": plain_ms,
         "bound_ms": res3m["bound_ms"],
@@ -2374,6 +2779,12 @@ def main() -> int:
                          "launches": res500["kernel_launches"],
                          "bound_ms": res500["bound_ms"],
                          "bound_by": res500["bound_by"]},
+        "trained_2m": {"ms": formats_res["kernel_ms_frame0"],
+                       "frame_ms_median": formats_res["frame_ms_median"],
+                       "launches": formats_res["kernel_launches"],
+                       "bound_ms": formats_res["bound_ms"],
+                       "bound_by": formats_res["bound_by"],
+                       "plain_ms_32_tiles": formats_res["plain_ms_32_tiles"]},
         "culled_frame_with_sat_ms": sess3m["culled_frame_stage_ms"]["compositor_with_sat"],
         "culled_frame_plain_ms": sess3m["culled_frame_stage_ms"]["compositor_plain"],
         "session_launches": sess3m["kernel_launches"]["tile_render2"],
@@ -2402,7 +2813,13 @@ def main() -> int:
         "route": "cuda",
         "source": "gaussianrenderer_tpu_torch/csrc/tile_train.cu",
         "replaces": f"gaussianrenderer_tpu/ops/pallas/tile_train.py:{line}",
-        "launches": train_res["kernel_launches"][f"tile_train_{kind}"],
+        "launches": (train_res["kernel_launches"][f"tile_train_{kind}"]
+                     + colmap_res["kernel_launches"][f"tile_train_{kind}"]
+                     + blender_res["kernel_launches"][f"tile_train_{kind}"]),
+        "launches_by_phase": {
+            "train-500k": train_res["kernel_launches"][f"tile_train_{kind}"],
+            "colmap-fit": colmap_res["kernel_launches"][f"tile_train_{kind}"],
+            "blender-fit": blender_res["kernel_launches"][f"tile_train_{kind}"]},
         "launches_counted": "calls; each launches the kernel's passes",
         "kernels_launched": train_res["kernels_launched_by_the_calls"][f"tile_train_{kind}"],
         "kernel_launches_per_call": train_times["kernel_launches_per_call"][kind],

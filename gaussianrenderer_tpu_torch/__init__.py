@@ -25,12 +25,19 @@ where every kernel's plain PyTorch version runs instead.
     state = opt.init(params)
     params, state, loss = step(params, state, cam.params(3.0), target)
 
-    # A fit with densification, from a poses.json dataset (apps/fit).
+    # A fit with densification, from a COLMAP workspace, a Blender
+    # transforms*.json capture or a poses.json dataset (apps/fit), here
+    # seeded from a COLMAP workspace's SfM points.
+    from gaussianrenderer_tpu_torch.scene import colmap, edit
     views = gt.load_views("dataset/", cfg)
+    params = colmap.init_from_points(*colmap.load_colmap_points("dataset/"), n=100_000)
     params, history = gt.fit_scene(views, cfg, params, steps=3000,
                                    loss_fn=gt.l1_dssim_loss, densify_every=300)
     print(gt.evaluate(params, views, cfg)["psnr"])
     gt.save_ply(params.to_scene(), "fitted.ply")
+    # Scenes load and save as .ply, .gsz or .splat, and edit on the host.
+    scene = gt.load_scene("data/trained_2m.gsz")                     # on cuda
+    gt.save_compact(edit.prune_scene(scene, min_opacity=0.005), "out.gsz")
 
     # The harnesses' kernels: the blocked bf16 GEMM and the bitonic block
     # sort (apps/matrix_test, apps/radix_test, apps/onesweep).
@@ -71,7 +78,7 @@ from gaussianrenderer_tpu_torch.ops.projection import (
     preprocess_gaussians,
     slice_spacetime,
 )
-from gaussianrenderer_tpu_torch.ops.sh import eval_sh_columns
+from gaussianrenderer_tpu_torch.ops.sh import eval_sh, eval_sh_columns
 from gaussianrenderer_tpu_torch.ops.sort import (
     is_nondecreasing,
     pack_key,
@@ -91,7 +98,20 @@ from gaussianrenderer_tpu_torch.render import (
 )
 from gaussianrenderer_tpu_torch.scene.camera import Camera, CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene, morton_codes
-from gaussianrenderer_tpu_torch.scene.io import load_ply, make_random_scene, save_ply
+from gaussianrenderer_tpu_torch.scene.compact import (
+    load_compact,
+    load_splat,
+    save_compact,
+    save_splat,
+)
+from gaussianrenderer_tpu_torch.scene.io import (
+    load_ply,
+    load_scene,
+    make_clustered_scene,
+    make_random_scene,
+    make_surface_scene,
+    save_ply,
+)
 from gaussianrenderer_tpu_torch.train import (
     DensifyState,
     SceneParams,
@@ -138,6 +158,7 @@ __all__ = [
     "composite_tiles_xla",
     "dataset_image_shape",
     "densify_step",
+    "eval_sh",
     "eval_sh_columns",
     "evaluate",
     "fit_scene",
@@ -145,12 +166,17 @@ __all__ = [
     "is_nondecreasing",
     "l1_dssim_loss",
     "load_checkpoint",
+    "load_compact",
     "load_ply",
+    "load_scene",
+    "load_splat",
     "load_views",
     "make_3dgs_optimizer",
+    "make_clustered_scene",
     "make_optimizer",
     "make_random_scene",
     "make_renderer",
+    "make_surface_scene",
     "make_train_step",
     "matmul_blocked",
     "matmul_blocked_plain",
@@ -166,8 +192,10 @@ __all__ = [
     "reset_opacity",
     "satcull",
     "save_checkpoint",
+    "save_compact",
     "save_ply",
     "save_png",
+    "save_splat",
     "slice_spacetime",
     "sort_packed",
     "sort_two_key",

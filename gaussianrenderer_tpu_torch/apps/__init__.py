@@ -7,7 +7,9 @@
   parser_test     PLY parse smoke
   camera_test     camera construction smoke
   train_test      training demo: densifying steps toward target renders
-  fit             gr-fit: fit a scene to a poses.json dataset
+  fit             gr-fit: fit a scene to a COLMAP, Blender or poses.json dataset
+  eval            gr-eval: score a scene against a dataset (PSNR/SSIM)
+  edit            gr-edit: merge, transform, crop and prune scenes
 
 Each takes the JAX app's flags and defaults, prints its lines and
 returns its exit codes, and adds ``--device`` (default ``cuda``; ``cpu``

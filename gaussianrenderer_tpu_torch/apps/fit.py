@@ -4,17 +4,20 @@ package's ``apps/fit``).
     python -m gaussianrenderer_tpu_torch.apps.fit DATASET_DIR --out scene.ply \
         --n 100000 --steps 5000
 
-DATASET_DIR is a ``poses.json`` + targets directory in the
-``train.load_views`` format. Initialization is random inside a
-camera-scaled box, or ``--init scene.ply`` refines an existing scene. Fits
+DATASET_DIR is a COLMAP workspace (``sparse/0/{cameras,images,
+points3D}.bin`` + ``images/``), a Blender / NeRF-synthetic / instant-ngp /
+D-NeRF ``transforms*.json`` layout (``--background white`` for the
+white-background sets), or a ``poses.json`` + targets directory in the
+``train.load_views`` format. Initialization: SfM points for COLMAP
+captures (``--init sfm``, their default), random inside a camera-scaled
+box otherwise, or ``--init scene.ply|.gsz|.splat`` to refine a scene. Fits
 with the 3DGS per-group schedule, adaptive density control and periodic
 opacity resets; writes the fitted scene as a 3DGS PLY and prints the
 final (and held-out) PSNR/SSIM. ``--device`` (default ``cuda``) picks the
 device; ``cpu`` runs the kernels' plain versions.
 
-Not ported yet: COLMAP and Blender datasets, ``--init sfm`` and ``.gsz`` /
-``.splat`` inits (ROADMAP Queue 1 item 3), and the ``--serve`` training
-monitor (item 4); each raises ``NotImplementedError``.
+Not ported yet: the ``--serve`` training monitor (ROADMAP Queue 1 item
+4), which raises ``NotImplementedError``.
 """
 
 import argparse
@@ -86,17 +89,16 @@ def main() -> int:
         raise NotImplementedError(
             "fit --serve: the training monitor (web_viewer.TrainMonitor) is not "
             "ported yet (ROADMAP Queue 1 item 4)")
-    if args.init == "sfm" or (args.init or "").endswith((".gsz", ".splat")):
-        raise NotImplementedError(
-            f"fit --init {args.init}: SfM, .gsz and .splat initializations are "
-            "not ported yet (ROADMAP Queue 1 item 3)")
+
+    import os
 
     import numpy as np
     import torch
 
     from gaussianrenderer_tpu_torch._device import resolve_device
     from gaussianrenderer_tpu_torch.config import RenderConfig, parse_color
-    from gaussianrenderer_tpu_torch.scene.io import load_ply, make_random_scene, save_ply
+    from gaussianrenderer_tpu_torch.scene import colmap
+    from gaussianrenderer_tpu_torch.scene.io import load_scene, make_random_scene, save_ply
     from gaussianrenderer_tpu_torch.train import (
         SceneParams,
         dataset_image_shape,
@@ -109,6 +111,10 @@ def main() -> int:
     )
 
     dev = resolve_device(args.device)
+    is_colmap = not os.path.isfile(
+        os.path.join(args.dataset, "poses.json")
+    ) and colmap.is_colmap_dir(args.dataset)
+
     if args.height is None or args.width is None:
         shape = dataset_image_shape(args.dataset)
         d = max(args.downscale, 1)
@@ -133,10 +139,19 @@ def main() -> int:
     print(f"{len(views)} train / {len(heldout)} held-out views at "
           f"{args.width}x{args.height}", flush=True)
 
-    if args.init:
-        # Load at the requested training degree: a lower-degree init gets
-        # zero-padded bands to learn into.
-        init_scene = load_ply(args.init, max_sh_degree=args.sh_degree, device=dev)
+    if args.init is None and is_colmap:
+        args.init = "sfm"  # the upstream 3DGS default for COLMAP captures
+    if args.init == "sfm":
+        xyz, rgb = colmap.load_colmap_points(args.dataset)
+        print(f"SfM init: {xyz.shape[0]} points -> {args.n} splats", flush=True)
+        params = colmap.init_from_points(
+            xyz, rgb, n=args.n, sh_degree=cfg.sh_degree, seed=args.seed, device=dev
+        )
+    elif args.init:
+        # Load at the requested training degree: a higher-degree init is
+        # truncated to what will be trained, a lower-degree one (and any
+        # .gsz/.splat, which never pad) gets zero bands to learn into.
+        init_scene = load_scene(args.init, max_sh_degree=args.sh_degree, device=dev)
         want = 3 * (args.sh_degree + 1) ** 2
         if init_scene.sh.shape[1] < want:
             init_scene = init_scene._replace(sh=torch.nn.functional.pad(

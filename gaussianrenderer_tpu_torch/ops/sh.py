@@ -78,3 +78,49 @@ def eval_sh_columns(
     if clamp:
         color = torch.clamp(color + 0.5, 0.0, 1.0)
     return color
+
+
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int,
+            clamp: bool = True) -> torch.Tensor:
+    """View-dependent RGB from (N, 3·(deg+1)²) interleaved coefficients at
+    (N, 3) unit world directions, evaluating ``degree`` (at most the
+    stored degree); ``clamp`` applies the +0.5 offset and the [0, 1]
+    clamp. Returns (N, 3) colours."""
+    n_coeff_stored = sh.shape[-1] // 3
+    max_degree_stored = int(round(n_coeff_stored**0.5)) - 1
+    degree = min(degree, max_degree_stored)
+
+    def coeff(c: int) -> torch.Tensor:
+        return sh[..., 3 * c: 3 * c + 3]
+
+    color = SH_C0 * coeff(0)
+    if degree > 0:
+        x = dirs[..., 0:1]
+        y = dirs[..., 1:2]
+        z = dirs[..., 2:3]
+        color = color - SH_C1 * y * coeff(1) + SH_C1 * z * coeff(2) - SH_C1 * x * coeff(3)
+        if degree > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            color = (
+                color
+                + SH_C2[0] * xy * coeff(4)
+                + SH_C2[1] * yz * coeff(5)
+                + SH_C2[2] * (2.0 * zz - xx - yy) * coeff(6)
+                + SH_C2[3] * xz * coeff(7)
+                + SH_C2[4] * (xx - yy) * coeff(8)
+            )
+            if degree > 2:
+                color = (
+                    color
+                    + SH_C3[0] * y * (3.0 * xx - yy) * coeff(9)
+                    + SH_C3[1] * xy * z * coeff(10)
+                    + SH_C3[2] * y * (4.0 * zz - xx - yy) * coeff(11)
+                    + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * coeff(12)
+                    + SH_C3[4] * x * (4.0 * zz - xx - yy) * coeff(13)
+                    + SH_C3[5] * z * (xx - yy) * coeff(14)
+                    + SH_C3[6] * x * (xx - 3.0 * yy) * coeff(15)
+                )
+    if clamp:
+        color = torch.clamp(color + 0.5, 0.0, 1.0)
+    return color

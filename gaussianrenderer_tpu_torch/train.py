@@ -806,14 +806,8 @@ def psnr(a, b, peak: float = 1.0) -> float:
 
 
 # ----------------------------------------------------------------- datasets
-def _poses_path(dataset_dir: str) -> str:
-    path = os.path.join(dataset_dir, "poses.json")
-    if not os.path.isfile(path):
-        raise NotImplementedError(
-            f"{dataset_dir}: no poses.json; COLMAP and Blender datasets are "
-            "not ported yet (ROADMAP Queue 1 item 3)"
-        )
-    return path
+def _has_poses(dataset_dir: str) -> bool:
+    return os.path.isfile(os.path.join(dataset_dir, "poses.json"))
 
 
 def _read_image(path: str) -> np.ndarray:
@@ -825,9 +819,22 @@ def _read_image(path: str) -> np.ndarray:
 
 
 def dataset_image_shape(dataset_dir: str) -> Tuple[int, int]:
-    """(height, width) of a ``poses.json`` dataset's first target, read
-    without loading the dataset."""
-    with open(_poses_path(dataset_dir)) as fh:
+    """(height, width) of a capture dataset's images, read without loading
+    the dataset: a COLMAP workspace's calibrated camera, a
+    ``transforms*.json`` meta's ``h``/``w`` (or its first frame's image),
+    or a ``poses.json`` dataset's first target. Detection order as in
+    :func:`load_views`."""
+    from gaussianrenderer_tpu_torch.scene import blender, colmap
+
+    if not _has_poses(dataset_dir):
+        if colmap.is_colmap_dir(dataset_dir):
+            sparse = colmap.find_sparse_dir(dataset_dir)
+            cam0 = next(iter(colmap.read_cameras_bin(
+                os.path.join(sparse, "cameras.bin")).values()))
+            return int(cam0.height), int(cam0.width)
+        if blender.is_blender_dir(dataset_dir):
+            return blender.blender_image_shape(dataset_dir)
+    with open(os.path.join(dataset_dir, "poses.json")) as fh:
         records = json.load(fh)
     if not records:
         raise ValueError(f"{dataset_dir}: poses.json has no views")
@@ -841,28 +848,52 @@ def dataset_image_shape(dataset_dir: str) -> Tuple[int, int]:
 
 def load_views(dataset_dir: str, cfg: RenderConfig, k_sigma: float = 3.0,
                stride: int = 1, split: Optional[str] = None, device="cuda"):
-    """A ``poses.json`` dataset as :func:`fit_scene` views on ``device``.
+    """A capture dataset directory as :func:`fit_scene` views on ``device``.
+
+    Detection order: ``poses.json``, then a COLMAP workspace
+    (:func:`scene.colmap.load_colmap`; pair it with
+    :func:`scene.colmap.init_from_points` for the SfM-seeded start), then
+    a Blender / NeRF-synthetic / instant-ngp / D-NeRF ``transforms*.json``
+    layout (:func:`scene.blender.load_blender`: ``split`` picks
+    ``transforms_{split}.json``, default the train split, then a splitless
+    ``transforms.json``; RGBA targets composite over ``cfg.background``;
+    D-NeRF times make timed triples). ``split`` on any other dataset
+    raises ``ValueError``. ``stride`` keeps every Nth view before any
+    target is read.
 
     ``poses.json`` lists records with ``c2w`` (3×4 or 4×4), ``target`` (a
     file name), ``fov_y`` or ``fy``, and optional ``near``, ``far``,
     ``convention`` (default opencv) and ``time`` (making the view a timed
-    triple). ``stride`` keeps every Nth record before any target is read.
-    Targets are ``.npy`` (H, W, 3+) float or uint8 arrays or image files
-    (PIL); each must be ``cfg.height × cfg.width`` and becomes the planar
-    (3, H, W) float32 bottom-up layout :func:`render_for_training`
-    produces. A directory without ``poses.json`` (COLMAP, Blender) raises
-    ``NotImplementedError``; ``split`` applies only to Blender datasets."""
+    triple). Its targets are ``.npy`` (H, W, 3+) float or uint8 arrays or
+    image files (PIL), each ``cfg.height × cfg.width``; COLMAP and
+    Blender images resize same-aspect to that size. Every target becomes
+    the planar (3, H, W) float32 bottom-up layout
+    :func:`render_for_training` produces."""
     from gaussianrenderer_tpu_torch.scene.camera import Camera
 
-    poses = _poses_path(dataset_dir)
+    dev = resolve_device(device)
+    if not _has_poses(dataset_dir):
+        from gaussianrenderer_tpu_torch.scene import blender, colmap
+
+        if colmap.is_colmap_dir(dataset_dir):
+            if split is not None:
+                raise ValueError(
+                    "split= selects transforms_{split}.json and applies only to "
+                    "Blender/NeRF-synthetic datasets; COLMAP workspaces split by "
+                    "stride (llffhold)"
+                )
+            return colmap.load_colmap(dataset_dir, cfg, k_sigma=k_sigma, stride=stride,
+                                      device=dev)
+        if blender.is_blender_dir(dataset_dir):
+            return blender.load_blender(dataset_dir, cfg, k_sigma=k_sigma, stride=stride,
+                                        split=split, background=cfg.background, device=dev)
     if split is not None:
         raise ValueError(
             "split= selects transforms_{split}.json and applies only to "
             "Blender/NeRF-synthetic datasets; poses.json datasets split "
             "by stride"
         )
-    dev = resolve_device(device)
-    with open(poses) as fh:
+    with open(os.path.join(dataset_dir, "poses.json")) as fh:
         records = json.load(fh)
     views = []
     for rec in records[:: max(stride, 1)]:

@@ -131,8 +131,9 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys, gaussianrenderer_tpu_torch, chip_smoke\n"
         "import gaussianrenderer_tpu_torch.utils\n"
-        "from gaussianrenderer_tpu_torch.apps import (camera_test, fit, matrix_test,"
-        " onesweep, parser_test, radix_test, train_test)\n"
+        "from gaussianrenderer_tpu_torch.apps import (camera_test, edit, eval, fit,"
+        " matrix_test, onesweep, parser_test, radix_test, train_test)\n"
+        "from gaussianrenderer_tpu_torch.scene import blender, colmap, compact\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gaussianrenderer_tpu' or m.startswith('gaussianrenderer_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

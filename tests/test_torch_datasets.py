@@ -98,10 +98,14 @@ def test_load_views_rejects(dataset, tmp_path):
     with pytest.raises(ValueError, match="split="):
         gt.load_views(dataset, gt.RenderConfig(height=H, width=W), split="test",
                       device="cpu")
+    # A directory with no poses.json, no reconstruction (an empty sparse/0)
+    # and no transforms file: both packages look for poses.json.
     (tmp_path / "sparse" / "0").mkdir(parents=True)
     for fn in (lambda: gt.dataset_image_shape(str(tmp_path)),
-               lambda: gt.load_views(str(tmp_path), gt.RenderConfig(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+               lambda: gt.load_views(str(tmp_path), gt.RenderConfig(), device="cpu"),
+               lambda: jtrain.dataset_image_shape(str(tmp_path)),
+               lambda: jtrain.load_views(str(tmp_path), jtrain.RenderConfig())):
+        with pytest.raises(FileNotFoundError, match="poses.json"):
             fn()
 
 
