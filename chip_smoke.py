@@ -96,7 +96,8 @@ its elapsed seconds:
                       for 40 steps with densification, held-out views and
                       checkpoints (exit 0, PSNR lines, a PLY of the same
                       N), again resumed from step 20; apps/train_test with
-                      its defaults (exit 0);
+                      its defaults (exit 0); the dataset is kept for
+                      viewer-2m;
 12. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
                       port's load_scene onto the card (load timed); 10
                       frames of an orbit at 1920×1080 through
@@ -127,10 +128,39 @@ its elapsed seconds:
                       refining the scene (--init, --background white, 40
                       steps) and apps/eval of the test split over white
                       (exit 0, finite PSNR);
-15. train-bench-shape
+15. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
+                      with a prewarm (its thread ends without an error)
+                      and data/trained_2m.gsz loaded by load_gaussians
+                      at formats-2m's pose; its frame bit-equal to
+                      render_frame's with equal instances, one
+                      compositor launch a frame, a synchronized median
+                      of 10 frames; the browser viewer (make_server on
+                      a free localhost port): the page, /frame?fmt=png
+                      equal to draw(), 10 timed /frame requests (stage
+                      medians from /stats, the draw split into the
+                      card's tail after render(), the conversion, the
+                      copy and the host's flip), a 30-part /stream while /orbit is
+                      poked, the depth view (5 rows, gray, within 2
+                      levels of the NumPy form), k-sigma and fov, zoom,
+                      a resize to 720p, POST /load of trained_500k.ply
+                      and trained_2m.gsz (200 with the count) and of a
+                      bad name (400), /stats with the JAX module's
+                      keys, a 500k-splat 4D scene whose two times give
+                      two frames; apps/cull_sort_test (gr-render) on
+                      trained_500k.ply at its defaults for 120 frames
+                      (two EMA lines, final:, the screenshot) beside a
+                      synchronized median of 10 Canvas frames;
+                      cull_sort_test --serve and window_test as served
+                      processes (one /frame each, its size checked);
+                      apps/fit --serve 0 --serve-every 10 for 20 steps
+                      on fit-app's dataset with the monitor polled
+                      (step 20 of 20, a PNG of the dataset's size);
+                      the compositor's launches equal to the frames,
+                      the train kernels' calls counted;
+16. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-16. gemm            — the GEMM harness: the port's apps/matrix_test at
+17. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -143,7 +173,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-17. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+18. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -151,7 +181,7 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-18. sort-harness    — the port's apps/onesweep and apps/radix_test with
+19. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
@@ -338,6 +368,27 @@ POINTS_READ_CAPTURE = 1_000_000  # a capture-scale points3D.bin, read and timed
 BLENDER_SIZE = 800  # the published NeRF-synthetic frame
 BLENDER_TRAIN, BLENDER_TEST = 12, 4
 BLENDER_FIT_STEPS = 40
+# The viewer phase: a 1080p Canvas on the repo's largest scene at
+# formats-2m's first pose, its browser viewer over localhost HTTP, and
+# the apps that serve it.
+SCENE_500K = os.path.join(REPO, "data", "trained_500k.ply")
+VIEWER_H, VIEWER_W = 1080, 1920
+VIEWER_RESIZE = (720, 1280)
+VIEWER_POSE = (3.9, 1.7, 3.9)
+VIEWER_FRAMES = 10
+VIEWER_STREAM_FRAMES = 30
+VIEWER_4D_SPLATS = 500_000
+VIEWER_HTTP_TIMEOUT = 120
+VIEWER_APP_START_S = 300
+#: The depth view against its NumPy form: the min-max scaling amplifies
+#: float differences (tests/test_torch_viewer.py holds the same 2).
+DEPTH_VIEW_LEVELS = 2
+#: The JAX web viewer's /stats keys.
+VIEWER_STATS_KEYS = ("frames", "ema_ms", "fps", "gaussians", "spacetime", "k_sigma",
+                     "fov_y", "flip_y", "view_mode", "frame")
+GR_RENDER_FRAMES = 120
+VIEWER_FIT_STEPS = 20
+VIEWER_FIT_SERVE_EVERY = 10
 #: Operations per compare-exchange pair and substage: one compare, and a
 #: select for each of the 9 rows of both outputs.
 OPS_COMPARE_EXCHANGE = 19
@@ -1909,8 +1960,7 @@ def phase_fit_app(torch, gt, scene, card):
     cfg = train_500k_config(gt)
     truth = gt.SceneParams.from_scene(scene)
     root = fit_dir("chip_smoke_fit_app")
-    data = os.path.join(root, "dataset")
-    os.makedirs(data)
+    data = fit_dir("chip_smoke_poses")  # kept for viewer-2m's fit --serve
     records = []
     for i in range(FIT_APP_VIEWS):
         ang = math.radians(45.0 + TRAIN_POSE_DEG * i)
@@ -1956,6 +2006,7 @@ def phase_fit_app(torch, gt, scene, card):
     check(rc_t == 0, f"fit-app: apps/train_test exited {rc_t}")
     shutil.rmtree(root)
     res = {"fit_app": f"apps/fit {' '.join(argv[1:])} on {FIT_APP_VIEWS} views",
+           "poses_dataset": data,
            "final": final[0], "held_out": held[0], "ply_gaussians": n_out,
            "fit_s": fit_s, "resumed_fit_s": resume_s,
            "resumed_final": [l for l in text_r.splitlines() if l.startswith("final")],
@@ -2310,6 +2361,454 @@ def phase_blender_fit(torch, gt, card):
         "loss": app_lines(text, "loss:"),
         "eval_test_split": rep,
         "app_s": {"fit": fit_s, "eval": eval_s},
+        "kernel_launches": launches,
+        "card": card,
+    }
+    out(res)
+    return res
+
+
+# ------------------------------------------------------------- viewer phase
+def http_get(url, timeout=VIEWER_HTTP_TIMEOUT):
+    from urllib.request import urlopen
+
+    with urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def decode_image(data):
+    """(H, W, 3) uint8 of an encoded JPEG, BMP or PNG frame."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def start_viewer_app(module, argv, log_path):
+    """``python -m module argv`` from the checkout, stdout piped and read
+    by a thread into a queue, stderr to ``log_path``."""
+    import queue
+    import threading
+
+    err = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines, err
+
+
+def viewer_app_url(proc, lines, log_path, timeout=VIEWER_APP_START_S):
+    """The URL of a served app's ``viewer: <url>`` line."""
+    import queue
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+        except queue.Empty:
+            line = None
+        if line is None:
+            with open(log_path) as fh:
+                log(fh.read()[-4000:])
+            check(False, f"viewer-2m: {proc.args[2]} printed no viewer line "
+                  f"(exit {proc.poll()})")
+        if line.startswith("viewer: "):
+            return line.split()[1]
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def depth_gray_numpy(fb, flip_y):
+    """The JAX Canvas's NumPy depth-view image of a 5-row framebuffer."""
+    import numpy as np
+
+    fb = fb.cpu().numpy()
+    alpha, depth = fb[3], fb[4]
+    covered = alpha > 0.05
+    nd = np.where(covered, depth / np.maximum(alpha, 1e-6), 0.0)
+    vis = nd[covered]
+    lo = float(vis.min()) if vis.size else 0.0
+    hi = float(vis.max()) if vis.size else 1.0
+    gray = np.where(covered, (nd - lo) / max(hi - lo, 1e-6), 0.0).astype(np.float32)
+    img = (np.clip(gray, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    img = np.repeat(img[:, :, None], 3, axis=2)
+    return np.ascontiguousarray(img[::-1] if flip_y else img)
+
+
+def draw_split_ms(torch, canvas, reps=5):
+    """Medians over ``reps`` frames of where a /frame request's time goes
+    after its ``render()``: the host time of ``canvas.render()`` (as
+    /frame's dispatch_ms, here on the main thread), the card's work left
+    when it returns (one synchronize), then the parts of
+    ``render.framebuffer_to_image``: its uint8 conversion on the card
+    (``framebuffer_to_uint8``, synchronized), the copy to the host and
+    the host's flipped contiguous copy; beside them the whole
+    ``canvas.draw()`` right after a ``render()``, as /frame's
+    fetch_draw_ms times it; and whether the card's uint8 image is
+    contiguous."""
+    import numpy as np
+
+    from gaussianrenderer_tpu_torch.render import framebuffer_to_uint8
+
+    parts = {k: [] for k in ("render_ms", "device_tail_ms", "device_ms", "copy_ms",
+                             "host_ms", "draw_ms")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        canvas.render()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts["render_ms"].append((t1 - t0) * 1e3)
+        parts["device_tail_ms"].append((time.perf_counter() - t1) * 1e3)
+        img, ms = host_ms(torch, lambda: framebuffer_to_uint8(canvas._fb))
+        parts["device_ms"].append(ms)
+        t0 = time.perf_counter()
+        arr = img.cpu().numpy()
+        t1 = time.perf_counter()
+        np.ascontiguousarray(arr[::-1])
+        parts["copy_ms"].append((t1 - t0) * 1e3)
+        parts["host_ms"].append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        canvas.render()
+        t0 = time.perf_counter()
+        canvas.draw()
+        parts["draw_ms"].append((time.perf_counter() - t0) * 1e3)
+    res = {k: statistics.median(v) for k, v in parts.items()}
+    res["device_image_contiguous"] = img.is_contiguous()
+    return res
+
+
+def phase_viewer_2m(torch, gt, card, poses_dir):
+    """The viewer on the card: a 1080p Canvas holding data/trained_2m.gsz
+    (prewarm, equality with render_frame, one compositor launch a frame,
+    a synchronized frame median), then the browser viewer over localhost
+    HTTP (the PNG frame equal to draw(), 10 timed /frame requests, a
+    30-part /stream while /orbit is poked, the depth view, k-sigma and
+    fov, zoom, a resize to 720p, uploads of trained_500k.ply and
+    trained_2m.gsz and a bad name, /stats keys, a 4D scene's time scrub);
+    apps/cull_sort_test on trained_500k.ply for 120 frames beside a
+    synchronized median; apps/cull_sort_test --serve and
+    apps/window_test as served processes; apps/fit --serve with its
+    monitor polled while it fits."""
+    import threading
+    from http.client import HTTPConnection
+
+    import numpy as np
+
+    from gaussianrenderer_tpu_torch import viewer, web_viewer
+    from gaussianrenderer_tpu_torch.apps import cull_sort_test, fit
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    root = fit_dir("chip_smoke_viewer")
+    comp = gt.composite_tiles_packed
+    procs = []
+    try:
+        comp.launches = tt.train_forward.launches = tt.train_backward.launches = 0
+        canvas = viewer.Canvas(VIEWER_H, VIEWER_W, device=DEVICE)
+        canvas.init(prewarm=True, resize_buckets=(VIEWER_RESIZE,))
+        canvas._prewarm_thread.join(timeout=600)
+        check(not canvas._prewarm_thread.is_alive() and canvas._prewarm_error is None,
+              f"viewer-2m: prewarm {canvas._prewarm_error!r}")
+        _, load_ms = host_ms(torch, lambda: canvas.load_gaussians(SCENE_2M))
+        check(canvas.scene.num_gaussians == SCENE_2M_SPLATS,
+              f"viewer-2m: {canvas.scene.num_gaussians} splats")
+        cam = canvas.camera
+        cam.set_position(list(VIEWER_POSE))
+        cam.set_look_at([0.0, 0.0, 0.0])
+        cam.set_clipping_planes(0.2, 100.0)
+        cam.set_aspect_ratio(VIEWER_W / VIEWER_H)
+        canvas.set_fov(70.0)
+
+        # Equality with render_frame, one launch a frame, frame time.
+        fb, st = canvas.render()
+        ref, ref_st = gt.render_frame(canvas.scene, cam.params(canvas.settings.k_sigma,
+                                                               device=DEVICE), canvas.cfg)
+        check(torch.equal(fb, ref) and int(st.num_instances) == int(ref_st.num_instances),
+              "viewer-2m: the Canvas frame differs from render_frame's")
+        before = comp.launches
+        frame_ms = [host_ms(torch, canvas.render)[1] for _ in range(VIEWER_FRAMES)]
+        check(comp.launches - before == VIEWER_FRAMES,
+              f"viewer-2m: {comp.launches - before} compositor launches in "
+              f"{VIEWER_FRAMES} frames")
+
+        server = web_viewer.make_server(canvas, port=0)
+        port = server.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+        serving = threading.Thread(target=server.serve_forever, daemon=True)
+        serving.start()
+        try:
+            check(b"gaussianrenderer_tpu_torch viewer" in http_get(base + "/"),
+                  "viewer-2m: page")
+            png = decode_image(http_get(base + "/frame?fmt=png"))
+            check(png.shape == (VIEWER_H, VIEWER_W, 3)
+                  and np.array_equal(png, canvas.draw()),
+                  "viewer-2m: /frame?fmt=png differs from draw()")
+            stages, wall_ms = [], []
+            for _ in range(VIEWER_FRAMES):
+                t0 = time.perf_counter()
+                body = http_get(base + "/frame")
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+                stages.append(json.loads(http_get(base + "/stats"))["frame"])
+            check(decode_image(body).shape == (VIEWER_H, VIEWER_W, 3),
+                  "viewer-2m: /frame size")
+            frame_stage_ms = {k: statistics.median(s[k] for s in stages)
+                              for k in ("dispatch_ms", "fetch_draw_ms", "encode_ms",
+                                        "total_ms")}
+            draw_split = draw_split_ms(torch, canvas)
+
+            # The push stream while a second thread pokes /orbit.
+            got = {}
+
+            def reader():
+                t0 = time.perf_counter()
+                got["data"] = http_get(base + f"/stream?frames={VIEWER_STREAM_FRAMES}")
+                got["s"] = time.perf_counter() - t0
+
+            rt = threading.Thread(target=reader)
+            rt.start()
+            pokes = 0
+            while rt.is_alive():
+                http_get(base + "/orbit?dx=4&dy=0")
+                pokes += 1
+                rt.join(timeout=0.01)
+            rt.join(timeout=VIEWER_HTTP_TIMEOUT)
+            check("data" in got, "viewer-2m: the stream returned nothing")
+            parts = got["data"].count(b"--grframe")
+            check(parts == VIEWER_STREAM_FRAMES,
+                  f"viewer-2m: {parts} stream parts of {VIEWER_STREAM_FRAMES}")
+            stream_stages = json.loads(http_get(base + "/stats"))["frame"]
+
+            # The depth view: 5 rows, gray, covered pixels lit, the NumPy form.
+            http_get(base + "/set?view=depth")
+            depth_img = decode_image(http_get(base + "/frame?fmt=png"))
+            check(canvas._fb.shape[0] == 5, f"viewer-2m: depth frame {canvas._fb.shape}")
+            check(np.array_equal(depth_img[..., 0], depth_img[..., 1])
+                  and np.array_equal(depth_img[..., 1], depth_img[..., 2])
+                  and depth_img.max() > 0, "viewer-2m: depth image not gray or dark")
+            depth_levels = int(np.abs(depth_img.astype(np.int16) - depth_gray_numpy(
+                canvas._fb, canvas.settings.flip_y).astype(np.int16)).max())
+            check(depth_levels <= DEPTH_VIEW_LEVELS,
+                  f"viewer-2m: depth view {depth_levels} levels from the NumPy form")
+            http_get(base + "/set?view=rgb")
+            rgb = decode_image(http_get(base + "/frame?fmt=png"))
+            http_get(base + "/set?k_sigma=1.5&fov=60")
+            ks = decode_image(http_get(base + "/frame?fmt=png"))
+            check(canvas.settings.k_sigma == 1.5 and canvas.settings.fov_y == 60.0
+                  and not np.array_equal(rgb, ks), "viewer-2m: /set k_sigma, fov")
+            http_get(base + "/zoom?d=0.5")
+            zoomed = decode_image(http_get(base + "/frame?fmt=png"))
+            check(not np.array_equal(ks, zoomed), "viewer-2m: /zoom")
+            canvas.on_resize(*VIEWER_RESIZE)
+            small = decode_image(http_get(base + "/frame?fmt=png"))
+            check(small.shape == (*VIEWER_RESIZE, 3), f"viewer-2m: resized {small.shape}")
+
+            # Uploads: the PLY, the .gsz, and a bad name.
+            uploads = {}
+            conn = HTTPConnection("127.0.0.1", port, timeout=VIEWER_HTTP_TIMEOUT)
+            try:
+                for path, want in ((SCENE_500K, None), (SCENE_2M, SCENE_2M_SPLATS),
+                                   (None, None)):
+                    name = os.path.basename(path) if path else ".bad"
+                    data = b"x" if path is None else open(path, "rb").read()
+                    t0 = time.perf_counter()
+                    conn.request("POST", f"/load?name={name}", body=data,
+                                 headers={"Content-Length": str(len(data))})
+                    resp = conn.getresponse()
+                    answer = resp.read()
+                    uploads[name] = {"status": resp.status,
+                                     "ms": (time.perf_counter() - t0) * 1e3}
+                    if path is None:
+                        check(resp.status == 400, f"viewer-2m: bad upload {resp.status}")
+                        continue
+                    n = json.loads(answer)["gaussians"]
+                    uploads[name]["gaussians"] = n
+                    check(resp.status == 200 and n == canvas.scene.num_gaussians
+                          and (want is None or n == want), f"viewer-2m: upload {name} {answer}")
+                    del data
+            finally:
+                conn.close()
+            stats = json.loads(http_get(base + "/stats"))
+            check(sorted(stats) == sorted(VIEWER_STATS_KEYS),
+                  f"viewer-2m: /stats keys {sorted(stats)}")
+            check(stats["gaussians"] == SCENE_2M_SPLATS, f"viewer-2m: /stats {stats}")
+
+            # A 4D scene at 1080p: two times give two frames.
+            canvas.on_resize(VIEWER_H, VIEWER_W)
+            canvas.set_scene(gt.make_random_scene(VIEWER_4D_SPLATS, seed=0, spacetime=True,
+                                                  device=DEVICE))
+            times = []
+            for t in ("0", "1"):
+                http_get(base + f"/set?time={t}")
+                times.append(decode_image(http_get(base + "/frame?fmt=png")))
+            check(json.loads(http_get(base + "/stats"))["spacetime"] is True
+                  and not np.array_equal(*times), "viewer-2m: the time scrub")
+        finally:
+            server.shutdown()
+            server.server_close()
+            serving.join(timeout=VIEWER_HTTP_TIMEOUT)
+        canvas_frames = canvas.timer.frames
+        del canvas
+
+        # gr-render headless at its defaults, beside a synchronized median.
+        shot = os.path.join(root, "gr_render.png")
+        t0 = time.perf_counter()
+        rc, text = run_app(cull_sort_test, [SCENE_500K, "--frames", str(GR_RENDER_FRAMES),
+                                            "--screenshot", shot, "--device", DEVICE])
+        gr_render_s = time.perf_counter() - t0
+        log(text)
+        ema = app_lines(text, "frame ")
+        final = app_lines(text, "final:")
+        check(rc == 0 and len(ema) == GR_RENDER_FRAMES // 60 and len(final) == 1
+              and decode_image(open(shot, "rb").read()).shape == (1500, 2000, 3),
+              f"viewer-2m: gr-render exited {rc} with {text!r}")
+        session = cull_sort_test.session_canvas(2000, 1500, device=DEVICE)
+        session.load_gaussians(SCENE_500K)
+        session.render()
+        gr_frame_ms = []
+        for _ in range(VIEWER_FRAMES):
+            session.camera.orbit(1.0, 0.0)
+            gr_frame_ms.append(host_ms(torch, session.render)[1])
+        session_frames = session.timer.frames
+        del session
+
+        # The served apps, started together after every timed frame: one
+        # /frame each, then they stop.
+        for module, argv in (
+                ("gaussianrenderer_tpu_torch.apps.cull_sort_test", [SCENE_500K, "--serve",
+                                                                    "--port", "0"]),
+                ("gaussianrenderer_tpu_torch.apps.window_test", ["--port", "0"])):
+            argv += ["--device", DEVICE]
+            log_path = os.path.join(root, module.rsplit(".", 1)[1] + ".log")
+            procs.append((module, log_path, *start_viewer_app(module, argv, log_path)))
+        served = {}
+        for module, log_path, proc, lines, err in procs:
+            url = viewer_app_url(proc, lines, log_path)
+            t0 = time.perf_counter()
+            img = decode_image(http_get(url + "frame", timeout=VIEWER_APP_START_S))
+            name = module.rsplit(".", 1)[1]
+            served[name] = {"shape": list(img.shape),
+                            "first_frame_ms": (time.perf_counter() - t0) * 1e3}
+            want = (1500, 2000, 3) if name == "cull_sort_test" else (512, 512, 3)
+            check(img.shape == want and img.max() > 0, f"viewer-2m: {name} /frame {img.shape}")
+        for _, _, proc, _, _ in procs:
+            stop_process(proc)
+
+        # fit --serve: the monitor polled while the fit runs.
+        monitors = []
+
+        class Recorded(web_viewer.TrainMonitor):
+            def start(self):
+                monitors.append(self)
+                return super().start()
+
+        polled = {"steps": [], "frames": 0}
+        done = threading.Event()
+
+        def poll():
+            while not done.is_set():
+                if monitors:
+                    try:
+                        polled["steps"].append(
+                            json.loads(http_get(monitors[0].url + "status"))["step"])
+                        http_get(monitors[0].url + "frame")
+                        polled["frames"] += 1
+                    except OSError:  # 404 before the first snapshot
+                        pass
+                done.wait(0.1)
+
+        poller = threading.Thread(target=poll)
+        saved = web_viewer.TrainMonitor
+        web_viewer.TrainMonitor = Recorded
+        poller.start()
+        before = {"fwd": tt.train_forward.launches, "bwd": tt.train_backward.launches}
+        try:
+            t0 = time.perf_counter()
+            rc, text = run_app(fit, [poses_dir, "--init", SCENE_500K, "--sh-degree", "1",
+                                     "--steps", str(VIEWER_FIT_STEPS), "--densify-every", "10",
+                                     "--opacity-reset-every", "0", "--holdout-every", "4",
+                                     "--serve", "0", "--serve-every",
+                                     str(VIEWER_FIT_SERVE_EVERY),
+                                     "--out", os.path.join(root, "fitted.ply"),
+                                     "--device", DEVICE])
+            fit_s = time.perf_counter() - t0
+            done.set()
+            poller.join(timeout=VIEWER_HTTP_TIMEOUT)
+            log(text)
+            check(rc == 0 and len(monitors) == 1, f"viewer-2m: apps/fit --serve exited {rc}")
+            check(app_lines(text, "monitor: ") == [f"monitor: {monitors[0].url}"],
+                  "viewer-2m: no monitor line")
+            status = json.loads(http_get(monitors[0].url + "status"))
+            snap = decode_image(http_get(monitors[0].url + "frame"))
+            check(status["step"] == VIEWER_FIT_STEPS and status["total_steps"] == VIEWER_FIT_STEPS
+                  and snap.shape == (TRAIN_H, TRAIN_W, 3), f"viewer-2m: monitor {status}")
+        finally:
+            done.set()
+            poller.join(timeout=VIEWER_HTTP_TIMEOUT)
+            web_viewer.TrainMonitor = saved
+            for m in monitors:
+                m.stop()
+        with open(os.path.join(poses_dir, "poses.json")) as fh:
+            views = len(json.load(fh))
+        snapshots = VIEWER_FIT_STEPS // VIEWER_FIT_SERVE_EVERY + 1
+        fit_calls = {"fwd": tt.train_forward.launches - before["fwd"],
+                     "bwd": tt.train_backward.launches - before["bwd"]}
+        check(fit_calls == {"fwd": VIEWER_FIT_STEPS + snapshots + views,
+                            "bwd": VIEWER_FIT_STEPS},
+              f"viewer-2m: train kernel calls {fit_calls} in apps/fit --serve")
+
+    finally:
+        for _, _, proc, _, err in procs:
+            stop_process(proc)
+            err.close()
+    launches = {"tile_render2": comp.launches, "tile_train_fwd": tt.train_forward.launches,
+                "tile_train_bwd": tt.train_backward.launches}
+    # Every frame of the phase's canvases (and the one render_frame beside
+    # them) launched the compositor once.
+    frames = canvas_frames + GR_RENDER_FRAMES + session_frames + 1
+    check(launches["tile_render2"] == frames,
+          f"viewer-2m: {launches['tile_render2']} compositor launches for {frames} frames")
+    shutil.rmtree(root)
+    shutil.rmtree(poses_dir)
+    res = {
+        "viewer": (f"Canvas {VIEWER_W}x{VIEWER_H} on data/trained_2m.gsz from "
+                   f"{VIEWER_POSE}, fov 70"),
+        "load_ms": load_ms,
+        "canvas_frame_ms_median": statistics.median(frame_ms),
+        "canvas_frame_ms_all": frame_ms,
+        "num_instances": int(st.num_instances),
+        "frame_stage_ms_median": frame_stage_ms,
+        "frame_wall_ms_median": statistics.median(wall_ms),
+        "draw_split_ms_median": draw_split,
+        "frame_format": stages[-1]["fmt"], "frame_bytes": stages[-1]["bytes"],
+        "stream_parts": parts, "stream_s": got["s"],
+        "stream_frames_per_s": parts / got["s"], "stream_orbit_pokes": pokes,
+        "stream_last_stages_ms": stream_stages,
+        "depth_view_levels_from_numpy": depth_levels,
+        "uploads": uploads,
+        "gr_render": {"lines": ema + final, "s": gr_render_s,
+                      "synchronized_frame_ms_median": statistics.median(gr_frame_ms),
+                      "synchronized_frame_ms_all": gr_frame_ms},
+        "fit_serve": {"monitor_status": status, "polled_steps": sorted(set(polled["steps"])),
+                      "polled_frames": polled["frames"], "s": fit_s,
+                      "final": app_lines(text, "final:"), "train_kernel_calls": fit_calls},
+        "served_apps": served,
         "kernel_launches": launches,
         "card": card,
     }
@@ -2726,7 +3225,7 @@ def main() -> int:
         fit_res = phase_fit(torch, gt, scene500, card)
 
     with Phase("fit-app", torch):
-        phase_fit_app(torch, gt, scene500, card)
+        fit_app_res = phase_fit_app(torch, gt, scene500, card)
     del scene500
     torch.cuda.empty_cache()
 
@@ -2739,6 +3238,10 @@ def main() -> int:
 
     with Phase("blender-fit", torch):
         blender_res = phase_blender_fit(torch, gt, card)
+        torch.cuda.empty_cache()
+
+    with Phase("viewer-2m", torch):
+        viewer_res = phase_viewer_2m(torch, gt, card, fit_app_res["poses_dataset"])
         torch.cuda.empty_cache()
 
     with Phase("train-bench-shape", torch):
@@ -2760,11 +3263,13 @@ def main() -> int:
         "source": "gaussianrenderer_tpu_torch/csrc/tile_render2.cu",
         "replaces": "gaussianrenderer_tpu/ops/pallas/tile_render2.py:158",
         "launches": (res3m["kernel_launches"] + formats_res["kernel_launches"]
-                     + colmap_res["kernel_launches"]["tile_render2"]),
+                     + colmap_res["kernel_launches"]["tile_render2"]
+                     + viewer_res["kernel_launches"]["tile_render2"]),
         "launches_by_phase": {"full-3m": res3m["kernel_launches"],
                               "formats-2m": formats_res["kernel_launches"],
                               "colmap-fit (apps/eval --path packed)":
-                                  colmap_res["kernel_launches"]["tile_render2"]},
+                                  colmap_res["kernel_launches"]["tile_render2"],
+                              "viewer-2m": viewer_res["kernel_launches"]["tile_render2"]},
         "max_abs_err": max(max_err, formats_res["kernel_vs_plain_max_abs"]),
         "ms": res3m["kernel_ms_median"],
         "plain_ms": plain_ms,
@@ -2815,11 +3320,14 @@ def main() -> int:
         "replaces": f"gaussianrenderer_tpu/ops/pallas/tile_train.py:{line}",
         "launches": (train_res["kernel_launches"][f"tile_train_{kind}"]
                      + colmap_res["kernel_launches"][f"tile_train_{kind}"]
-                     + blender_res["kernel_launches"][f"tile_train_{kind}"]),
+                     + blender_res["kernel_launches"][f"tile_train_{kind}"]
+                     + viewer_res["kernel_launches"][f"tile_train_{kind}"]),
         "launches_by_phase": {
             "train-500k": train_res["kernel_launches"][f"tile_train_{kind}"],
             "colmap-fit": colmap_res["kernel_launches"][f"tile_train_{kind}"],
-            "blender-fit": blender_res["kernel_launches"][f"tile_train_{kind}"]},
+            "blender-fit": blender_res["kernel_launches"][f"tile_train_{kind}"],
+            "viewer-2m (apps/fit --serve)":
+                viewer_res["kernel_launches"][f"tile_train_{kind}"]},
         "launches_counted": "calls; each launches the kernel's passes",
         "kernels_launched": train_res["kernels_launched_by_the_calls"][f"tile_train_{kind}"],
         "kernel_launches_per_call": train_times["kernel_launches_per_call"][kind],

@@ -28,7 +28,7 @@ where every kernel's plain PyTorch version runs instead.
     # A fit with densification, from a COLMAP workspace, a Blender
     # transforms*.json capture or a poses.json dataset (apps/fit), here
     # seeded from a COLMAP workspace's SfM points.
-    from gaussianrenderer_tpu_torch.scene import colmap, edit
+    from gaussianrenderer_tpu_torch.scene import colmap
     views = gt.load_views("dataset/", cfg)
     params = colmap.init_from_points(*colmap.load_colmap_points("dataset/"), n=100_000)
     params, history = gt.fit_scene(views, cfg, params, steps=3000,
@@ -37,7 +37,16 @@ where every kernel's plain PyTorch version runs instead.
     gt.save_ply(params.to_scene(), "fitted.ply")
     # Scenes load and save as .ply, .gsz or .splat, and edit on the host.
     scene = gt.load_scene("data/trained_2m.gsz")                     # on cuda
-    gt.save_compact(edit.prune_scene(scene, min_opacity=0.005), "out.gsz")
+    gt.save_compact(gt.prune_scene(scene, min_opacity=0.005), "out.gsz")
+
+    # The viewer: a headless Canvas session and its browser front end
+    # (viewer.py, web_viewer.py; apps/cull_sort_test is gr-render).
+    from gaussianrenderer_tpu_torch.viewer import Canvas
+    canvas = Canvas(height=1080, width=1920)
+    canvas.init()
+    canvas.load_gaussians("data/trained_2m.gsz")
+    fb, stats = canvas.render(); img = canvas.draw()   # (H, W, 3) uint8
+    canvas.serve(port=8800)                            # blocks; a browser drives it
 
     # The harnesses' kernels: the blocked bf16 GEMM and the bitonic block
     # sort (apps/matrix_test, apps/radix_test, apps/onesweep).
@@ -45,7 +54,7 @@ where every kernel's plain PyTorch version runs instead.
     y = gt.block_sort_runs(x_u32_as_int64, run=2048)                # (9, C)
 """
 
-from gaussianrenderer_tpu_torch.config import RenderConfig, parse_color
+from gaussianrenderer_tpu_torch.config import RenderConfig, UiSettings, parse_color
 from gaussianrenderer_tpu_torch.convert import (
     to_torch_adam_state,
     to_torch_camera,
@@ -104,6 +113,12 @@ from gaussianrenderer_tpu_torch.scene.compact import (
     save_compact,
     save_splat,
 )
+from gaussianrenderer_tpu_torch.scene.edit import (
+    crop_scene,
+    merge_scenes,
+    prune_scene,
+    transform_scene,
+)
 from gaussianrenderer_tpu_torch.scene.io import (
     load_ply,
     load_scene,
@@ -145,6 +160,7 @@ __all__ = [
     "RenderStats",
     "SceneParams",
     "TileAssignment",
+    "UiSettings",
     "accumulate_densify_stats",
     "block_sort_runs",
     "block_sort_runs_plain",
@@ -156,6 +172,7 @@ __all__ = [
     "composite_tiles_packed_plain",
     "composite_tiles_train",
     "composite_tiles_xla",
+    "crop_scene",
     "dataset_image_shape",
     "densify_step",
     "eval_sh",
@@ -180,11 +197,13 @@ __all__ = [
     "make_train_step",
     "matmul_blocked",
     "matmul_blocked_plain",
+    "merge_scenes",
     "morton_codes",
     "mse_loss",
     "pack_key",
     "parse_color",
     "preprocess_gaussians",
+    "prune_scene",
     "psnr",
     "radix_sort_u32",
     "render_for_training",
@@ -206,5 +225,6 @@ __all__ = [
     "to_torch_densify_state",
     "to_torch_params",
     "to_torch_scene",
+    "transform_scene",
     "unpack_key",
 ]

@@ -13,11 +13,11 @@ captures (``--init sfm``, their default), random inside a camera-scaled
 box otherwise, or ``--init scene.ply|.gsz|.splat`` to refine a scene. Fits
 with the 3DGS per-group schedule, adaptive density control and periodic
 opacity resets; writes the fitted scene as a 3DGS PLY and prints the
-final (and held-out) PSNR/SSIM. ``--device`` (default ``cuda``) picks the
-device; ``cpu`` runs the kernels' plain versions.
-
-Not ported yet: the ``--serve`` training monitor (ROADMAP Queue 1 item
-4), which raises ``NotImplementedError``.
+final (and held-out) PSNR/SSIM. ``--serve PORT`` serves a live training
+monitor (``web_viewer.TrainMonitor``: the latest snapshot of the first
+view and the loss; 0 picks a free port) with a snapshot every
+``--serve-every`` steps and one after the fit. ``--device`` (default
+``cuda``) picks the device; ``cpu`` runs the kernels' plain versions.
 """
 
 import argparse
@@ -84,11 +84,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-
-    if args.serve is not None:
-        raise NotImplementedError(
-            "fit --serve: the training monitor (web_viewer.TrainMonitor) is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
 
     import os
 
@@ -171,6 +166,26 @@ def main() -> int:
     extent = float(np.nanmax(np.abs(params.positions.cpu().numpy())))
 
     loss_fn = l1_dssim_loss if args.loss == "l1_dssim" else mse_loss
+
+    snapshot_fn = None
+    if args.serve is not None:
+        from gaussianrenderer_tpu_torch.render import framebuffer_to_image
+        from gaussianrenderer_tpu_torch.train import render_for_training
+        from gaussianrenderer_tpu_torch.web_viewer import TrainMonitor
+
+        monitor = TrainMonitor(port=args.serve).start()
+        print(f"monitor: {monitor.url}", flush=True)
+        preview_cam = views[0][0]
+
+        def snapshot_fn(step, p, loss):
+            with torch.no_grad():
+                fb = render_for_training(p, preview_cam, cfg)
+            monitor.update(
+                step, loss, framebuffer_to_image(fb),
+                num_gaussians=int(p.positions.shape[0]),
+                total_steps=args.steps,
+            )
+
     params, hist = fit_scene(
         views, cfg, params,
         steps=args.steps,
@@ -185,7 +200,11 @@ def main() -> int:
         checkpoint_every=args.checkpoint_every,
         resume_from=args.resume,
         log_fn=lambda s, l: print(f"step {s}: loss {l:.5f}", flush=True),
+        snapshot_fn=snapshot_fn,
+        snapshot_every=args.serve_every if snapshot_fn else 0,
     )
+    if snapshot_fn is not None and hist["losses"]:
+        snapshot_fn(args.steps, params, hist["losses"][-1])  # final state
     report = evaluate(params, views, cfg)
     print(f"final: PSNR {report['psnr']:.2f} dB  SSIM {report['ssim']:.4f}",
           flush=True)

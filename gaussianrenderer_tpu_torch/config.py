@@ -1,8 +1,8 @@
-"""Render configuration (PyTorch port).
+"""Render and viewer configuration (PyTorch port).
 
-A copy of ``gaussianrenderer_tpu.config.RenderConfig`` with the same
-fields and derived properties, so one configuration reads the same in
-both packages. Fields that size the JAX package's static buffers (the
+Copies of ``gaussianrenderer_tpu.config.RenderConfig`` and ``UiSettings``
+with the same fields, defaults and derived properties, so one
+configuration reads the same in both packages. Fields that size the JAX package's static buffers (the
 instance capacity and tier ladder) are kept so a config can be carried
 across unchanged; the port emits by count → scan and does not read them.
 """
@@ -137,6 +137,34 @@ class RenderConfig:
 
     def with_resolution(self, height: int, width: int) -> "RenderConfig":
         return dataclasses.replace(self, height=height, width=width)
+
+
+@dataclasses.dataclass
+class UiSettings:
+    """Runtime-adjustable viewer settings (the reference ImGui
+    ``UiSettings``, ``canvas.hpp:7-19``): flip-Y display, k-sigma splat
+    radius, fovY, and a tile grid with an X/Y lock."""
+
+    flip_y: bool = True
+    k_sigma: float = 3.0
+    fov_y: float = 45.0  # matches the Camera default
+    num_tile_x: int = 0
+    num_tile_y: int = 0
+    lock_tiles: bool = True
+    #: 4D scenes: the slice time. None renders static (ignored when the
+    #: scene has no time_params).
+    time_value: Optional[float] = None
+    #: Display mode: "rgb" or "depth" (the alpha-normalized expected-depth
+    #: row, min-max scaled to gray).
+    view_mode: str = "rgb"
+
+    def clamp(self) -> None:
+        self.k_sigma = min(max(self.k_sigma, 0.1), 8.0)
+        self.fov_y = min(max(self.fov_y, 10.0), 160.0)
+        if self.view_mode not in ("rgb", "depth"):
+            self.view_mode = "rgb"
+        if self.lock_tiles and self.num_tile_x > 0:
+            self.num_tile_y = self.num_tile_x
 
 
 def parse_color(spec: "Optional[str]") -> "Optional[Tuple[float, float, float]]":

@@ -355,13 +355,19 @@ def _finish_fb(fb: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     return torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
 
 
+def framebuffer_to_uint8(fb: torch.Tensor) -> torch.Tensor:
+    """The (H, W, 3) uint8 image of a planar float framebuffer tensor, on
+    the tensor's device and not flipped: the part of
+    ``framebuffer_to_image`` that runs before the copy to the host."""
+    return (torch.clamp(fb[:3].permute(1, 2, 0), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
 def framebuffer_to_image(fb, flip_y: bool = True) -> np.ndarray:
     """Planar (3, H, W) float framebuffer (tensor or array) → (H, W, 3)
     uint8. ``flip_y`` puts the top image row (NDC y = +1) first. Tensors
     convert on their own device, so only 3 bytes per pixel are copied."""
     if isinstance(fb, torch.Tensor):
-        img = (torch.clamp(fb[:3].permute(1, 2, 0), 0.0, 1.0) * 255.0 + 0.5)
-        img = img.to(torch.uint8).cpu().numpy()
+        img = framebuffer_to_uint8(fb).cpu().numpy()
     else:
         img = np.asarray(fb)[:3].transpose(1, 2, 0)
         img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)

@@ -6,6 +6,7 @@ count), against the JAX app's own output, and the training apps' lines
 against the JAX apps' formats.
 """
 
+import io
 import json
 import os
 import re
@@ -24,12 +25,14 @@ from gaussianrenderer_tpu_torch.apps import edit as edit_app
 from gaussianrenderer_tpu_torch.apps import eval as eval_app
 from gaussianrenderer_tpu_torch.apps import (
     camera_test,
+    cull_sort_test,
     fit,
     matrix_test,
     onesweep,
     parser_test,
     radix_test,
     train_test,
+    window_test,
 )
 from gaussianrenderer_tpu_torch.utils import timing
 
@@ -149,6 +152,8 @@ _APPS = {
     "fit": (fit, ["no-such-dataset", "--steps", "2"]),
     "eval": (eval_app, ["no-such-scene.ply", "no-such-dataset"]),
     "edit": (edit_app, ["out.ply", "no-such-scene.ply"]),
+    "cull_sort_test": (cull_sort_test, ["--synthetic", "10", "--frames", "1"]),
+    "window_test": (window_test, ["--n", "10"]),
 }
 
 
@@ -254,19 +259,158 @@ def test_fit_app(poses_dataset, tmp_path, monkeypatch, capsys):
     assert gt.load_ply(out2, device="cpu").num_gaussians == 64
 
 
-@pytest.mark.parametrize("argv,item", [(["--serve", "0"], "item 4"),
-                                       (["--init", "sfm"], "item 3"),
+@pytest.mark.parametrize("argv,item", [(["--init", "sfm"], "item 3"),
                                        (["--init", "scene.gsz"], "item 3")])
 def test_fit_app_unported_options_raise(argv, item, poses_dataset, monkeypatch):
-    """``--serve`` still raises naming its ROADMAP item. The item-3 options
-    are ported and fail, as in the JAX app, only for what is not on disk:
-    a poses.json dataset has no SfM points, and there is no scene.gsz."""
-    if item == "item 4":
-        raises = pytest.raises(NotImplementedError, match=item)
-    else:
-        raises = pytest.raises(FileNotFoundError)
-    with raises:
+    """The item-3 options are ported and fail, as in the JAX app, only for
+    what is not on disk: a poses.json dataset has no SfM points, and there
+    is no scene.gsz."""
+    with pytest.raises(FileNotFoundError):
         _run(fit, [str(poses_dataset), "--device", "cpu"] + argv, monkeypatch)
+
+
+def test_fit_app_serve_monitor(poses_dataset, tmp_path, monkeypatch, capsys):
+    """gr-fit --serve: a thread polls the training monitor's /status and
+    /frame while a 12-step fit runs (a snapshot every 6 steps and one
+    after the fit); it ends at step 12 of 12 with a PNG of the dataset's
+    64×48."""
+    import threading
+    from urllib.error import HTTPError, URLError
+    from urllib.request import urlopen
+
+    import numpy as np
+    from PIL import Image
+
+    from gaussianrenderer_tpu_torch import web_viewer
+
+    monitors = []
+
+    class Recorded(web_viewer.TrainMonitor):
+        def start(self):
+            monitors.append(self)
+            return super().start()
+
+    monkeypatch.setattr(web_viewer, "TrainMonitor", Recorded)
+    seen, done = [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            if monitors:
+                try:
+                    with urlopen(monitors[0].url + "status", timeout=30) as r:
+                        seen.append(json.loads(r.read())["step"])
+                except (HTTPError, URLError):
+                    pass
+            done.wait(0.05)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        rc = _run(fit, [str(poses_dataset), "--n", "64", "--steps", "12", "--loss", "mse",
+                        "--densify-every", "0", "--opacity-reset-every", "0",
+                        "--serve", "0", "--serve-every", "6", "--sh-degree", "1",
+                        "--out", str(tmp_path / "fitted.ply"), "--device", "cpu"], monkeypatch)
+        done.set()
+        poller.join(timeout=30)
+        assert not poller.is_alive()
+        text = capsys.readouterr().out
+        assert rc == 0, text
+        lines = _lines_match(text, FIT_LINES + (r"monitor: http://127\.0\.0\.1:\d+/",))
+        assert lines[1] == f"monitor: {monitors[0].url}"
+        base = monitors[0].url
+        with urlopen(base + "status", timeout=30) as r:
+            status = json.loads(r.read())
+        assert status["step"] == 12 and status["total_steps"] == 12
+        assert status["gaussians"] == 64 and np.isfinite(status["loss"])
+        with urlopen(base + "frame", timeout=30) as r:
+            img = np.asarray(Image.open(io.BytesIO(r.read())))
+        assert img.shape == (48, 64, 3)
+        assert seen and seen == sorted(seen) and set(seen) <= {0, 6, 12}
+    finally:
+        done.set()
+        poller.join(timeout=30)
+        for m in monitors:
+            m.stop()
+
+
+def _cull_sort_argv(tmp_path, tag):
+    return ["--synthetic", "500", "--frames", "3", "--width", "128", "--height", "96",
+            "--screenshot", str(tmp_path / f"{tag}.png")]
+
+
+def test_cull_sort_test_headless(tmp_path, monkeypatch, capsys):
+    """gr-render headless on the CPU prints the JAX app's lines (the EMA
+    line only every 60 frames, so none at 3), and the JAX app runs the
+    same session (its Pallas compositor in interpret mode) to a
+    screenshot within 1 level of the port's."""
+    import numpy as np
+    from PIL import Image
+
+    rc = _run(cull_sort_test, _cull_sort_argv(tmp_path, "port") + ["--device", "cpu"],
+              monkeypatch)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    formats = (r"wrote \S+/(port|jax)\.png", r"final: \d+\.\d{3} ms/frame \(\d+\.\d FPS\)")
+    lines = _lines_match(out, formats)
+    assert len(lines) == 2 and lines[0] == f"wrote {tmp_path / 'port.png'}"
+    port_img = np.asarray(Image.open(tmp_path / "port.png"))
+    assert port_img.shape == (96, 128, 3) and port_img.max() > 0
+    from gaussianrenderer_tpu.apps import cull_sort_test as jax_cull_sort_test
+
+    assert _run(jax_cull_sort_test, _cull_sort_argv(tmp_path, "jax"), monkeypatch) == 0
+    want = _lines_match(capsys.readouterr().out, formats)
+    assert [re.sub(r"[\d.]+", "N", l.replace("jax", "port")) for l in want] == \
+        [re.sub(r"[\d.]+", "N", l) for l in lines]
+    jax_img = np.asarray(Image.open(tmp_path / "jax.png"))
+    assert np.abs(port_img.astype(int) - jax_img.astype(int)).max() <= 1
+
+
+def test_cull_sort_test_needs_a_scene(monkeypatch, capsys):
+    assert _run(cull_sort_test, ["--device", "cpu"], monkeypatch) == 2
+    assert "need a PLY path or --synthetic N" in capsys.readouterr().err
+
+
+def _capture_serve(monkeypatch, canvas_cls):
+    served = []
+    monkeypatch.setattr(canvas_cls, "serve",
+                        lambda self, host="127.0.0.1", port=8800: served.append((self, port)))
+    return served
+
+
+def test_serve_apps_set_up_like_jax(monkeypatch):
+    """window_test and gr-render --serve, with Canvas.serve replaced:
+    the port's canvas holds the JAX app's scene, camera, size, settings
+    and port."""
+    import numpy as np
+
+    from gaussianrenderer_tpu.apps import cull_sort_test as jax_cull_sort_test
+    from gaussianrenderer_tpu.apps import window_test as jax_window_test
+    from gaussianrenderer_tpu.viewer import Canvas as JaxCanvas
+
+    from gaussianrenderer_tpu_torch.viewer import Canvas
+
+    jax_served = _capture_serve(monkeypatch, JaxCanvas)
+    served = _capture_serve(monkeypatch, Canvas)
+    cases = ((window_test, jax_window_test, ["--n", "300", "--size", "64", "--port", "0"]),
+             (cull_sort_test, jax_cull_sort_test,
+              ["--synthetic", "200", "--width", "80", "--height", "60", "--serve",
+               "--port", "9123"]))
+    for mod, jax_mod, argv in cases:
+        assert _run(mod, argv + ["--device", "cpu"], monkeypatch) == 0
+        assert _run(jax_mod, argv, monkeypatch) == 0
+        (c, port), (jc, jport) = served.pop(), jax_served.pop()
+        assert port == jport == int(argv[-1])
+        assert c.cfg.height == jc.cfg.height and c.cfg.width == jc.cfg.width
+        assert c.device.type == "cpu" and c._prewarm_thread is not None
+        for name in ("position", "look_at", "w_up", "view", "proj", "plane_normals"):
+            np.testing.assert_array_equal(getattr(c.camera, name), getattr(jc.camera, name))
+        assert (c.camera.near, c.camera.far, c.camera.fov_y) == (jc.camera.near, jc.camera.far,
+                                                                 jc.camera.fov_y)
+        assert c.settings.fov_y == jc.settings.fov_y
+        assert c.scene.num_gaussians == jc.scene.num_gaussians
+        for a, b in zip(c.scene, jc.scene):
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_fit_app_needs_poses_json(tmp_path, monkeypatch):

@@ -131,9 +131,11 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys, gaussianrenderer_tpu_torch, chip_smoke\n"
         "import gaussianrenderer_tpu_torch.utils\n"
-        "from gaussianrenderer_tpu_torch.apps import (camera_test, edit, eval, fit,"
-        " matrix_test, onesweep, parser_test, radix_test, train_test)\n"
+        "from gaussianrenderer_tpu_torch.apps import (camera_test, cull_sort_test, edit,"
+        " eval, fit, matrix_test, onesweep, parser_test, radix_test, train_test,"
+        " window_test)\n"
         "from gaussianrenderer_tpu_torch.scene import blender, colmap, compact\n"
+        "from gaussianrenderer_tpu_torch import viewer, web_viewer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gaussianrenderer_tpu' or m.startswith('gaussianrenderer_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -143,6 +145,16 @@ def test_port_import_leaves_jax_unloaded():
         timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_exports_the_jax_package_names():
+    """Every name the JAX package exports at the top level is exported by
+    the port too."""
+    import gaussianrenderer_tpu
+
+    missing = sorted(set(gaussianrenderer_tpu.__all__) - set(gt.__all__))
+    assert not missing, missing
+    assert all(hasattr(gt, name) for name in gt.__all__)
 
 
 def test_cuda_entry_points_raise_without_a_card():
