@@ -54,7 +54,21 @@ its elapsed seconds:
                       ≥ 40 dB against unculled renders (5°/frame printed,
                       not gated); frame times, stage times and each
                       kernel's launches per frame;
-8. train-kernel-vs-plain
+8. multichip-3m    — the multi-device main path (parallel.render_frame_multichip)
+                      on bench_3m at 1920×1080, its ranks started by
+                      parallel.spawn after the build (no rank runs nvcc) and
+                      sharing the one card over gloo: D = 2 on equal strips
+                      with each exchange (gather32, gather_q, a2a_q), D = 4
+                      on balance_strips_for_scene strips (gather_q, a2a_q)
+                      and balance_rects_for_scene rects (a2a_q): every
+                      rank's frame within 2e-4 of render_frame on that
+                      rank, gather32 on the xla compositor within 2e-5, no
+                      overflow, the strips' instances adding up to the
+                      single device's, one compositor launch per rank per
+                      frame; then a one-rank NCCL group, bit-equal to
+                      render_frame. Per rank: synchronized frame ms, each
+                      exchange's bytes and ms alone, instances, launches;
+9. train-kernel-vs-plain
                     — both training kernels against their plain versions
                       on every tile of the first training step's frame
                       below and of a heavy-overdraw case (16k large splats
@@ -65,7 +79,7 @@ its elapsed seconds:
                       the last tile exactly 0; kernel, plain and bound ms,
                       each pass's device ms (torch.profiler) and the
                       kernel launches of one call;
-9. train-500k       — the training main path: ``make_train_step`` with
+10. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
                       config), 30 steps over 4 orbit views whose targets
@@ -74,7 +88,7 @@ its elapsed seconds:
                       gradient, one launch of each kernel per step; step
                       ms, CUDA-event stage ms, PSNR before and after, and
                       a torch.profiler pass over 3 steps;
-10. fit-500k        — the fit main path: ``fit_scene`` on the same file,
+11. fit-500k        — the fit main path: ``fit_scene`` on the same file,
                       views, start, loss and optimizer, 60 steps with
                       densify episodes at 20 and 40 and checkpoints at 30
                       and 60, then ``evaluate`` on the views: loss finite
@@ -91,14 +105,27 @@ its elapsed seconds:
                       each, in turns), one ``densify_step`` episode's
                       CUDA-event ms (checked free of host waits) and
                       ``evaluate`` ms per view;
-11. fit-app         — apps/fit on a poses.json dataset of 8 views of the
+12. fit-app         — apps/fit on a poses.json dataset of 8 views of the
                       file at 640×480 (.npy targets), refining the PLY
                       for 40 steps with densification, held-out views and
                       checkpoints (exit 0, PSNR lines, a PLY of the same
                       N), again resumed from step 20; apps/train_test with
                       its defaults (exit 0); the dataset is kept for
                       viewer-2m;
-12. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
+13. multichip-train-500k
+                    — make_multichip_train_step on data/trained_500k.ply at
+                      its fitting config (640×480, 15 tile rows: balanced
+                      strips) with 2 ranks sharing the card: the first
+                      step's gradients within 1e-3 of the single-device
+                      step's (MSE, the 3DGS Adam), 10 steps from the seeded
+                      perturbation with losses finite and falling and one
+                      forward and one backward train-kernel call per rank
+                      per step; then fit_scene(mesh) for 20 steps with
+                      checkpoints at 10 and 20, resumed from 10 (losses
+                      within 1e-3), rank 0's last checkpoint read by a
+                      single-device load_checkpoint equal to every rank's
+                      returned params;
+14. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
                       port's load_scene onto the card (load timed); 10
                       frames of an orbit at 1920×1080 through
                       render_frame (median frame ms, instances, the
@@ -109,7 +136,7 @@ its elapsed seconds:
                       and .splat (save and load timed), each reload's
                       first frame scored against the original's: q16
                       > 55 dB, .splat > 35 dB at SH degree 0, q8 printed;
-13. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
+15. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
                       from 12 orbit views of data/trained_surface_100k.gsz
                       at 1280×720 and a points3D cloud of 20,000 of its
                       positions and DC colours (its read timed, and a
@@ -121,14 +148,14 @@ its elapsed seconds:
                       overflow_views 0); apps/edit to a pruned .gsz
                       (--min-opacity 0.005) and apps/eval of it; each
                       app's wall time and the kernels' launches in them;
-14. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
+16. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
                       views) and transforms_test.json (4) with RGBA PNGs
                       of the same scene at 800×800 (alpha from the
                       render's alpha row, camera_angle_x); apps/fit
                       refining the scene (--init, --background white, 40
                       steps) and apps/eval of the test split over white
                       (exit 0, finite PSNR);
-15. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
+17. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
                       with a prewarm (its thread ends without an error)
                       and data/trained_2m.gsz loaded by load_gaussians
                       at formats-2m's pose; its frame bit-equal to
@@ -157,10 +184,10 @@ its elapsed seconds:
                       (step 20 of 20, a PNG of the dataset's size);
                       the compositor's launches equal to the frames,
                       the train kernels' calls counted;
-16. train-bench-shape
+18. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-17. gemm            — the GEMM harness: the port's apps/matrix_test at
+19. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -173,7 +200,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-18. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+20. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -181,7 +208,7 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-19. sort-harness    — the port's apps/onesweep and apps/radix_test with
+21. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
@@ -392,6 +419,26 @@ VIEWER_FIT_SERVE_EVERY = 10
 #: Operations per compare-exchange pair and substage: one compare, and a
 #: select for each of the 9 rows of both outputs.
 OPS_COMPARE_EXCHANGE = 19
+#: The multi-device phases: D ranks that share the one card over gloo
+#: (NCCL needs a card per rank), so their numbers show correctness and
+#: what the exchange costs, not scaling. D = 2 on equal strips (bench_3m's
+#: 34 tile rows) and on balanced ones (trained_500k's 15), D = 4 on
+#: balanced strips and rects; timed frames per case; the tolerances of
+#: tests/test_multichip.py (2e-4 packed, 2e-5 for the f32 records on the
+#: xla compositor) and of the train phases' gradients (1e-3 of the
+#: largest).
+MC_D_SMALL = 2
+MC_D_BALANCED = 4
+MC_EXCHANGES = ("gather32", "gather_q", "a2a_q")
+MC_FRAMES = 5
+MC_NCCL_FRAMES = 2
+MC_ATOL_PACKED = 2e-4
+MC_ATOL_F32 = 2e-5
+MC_GRAD_REL = 1e-3
+MC_TRAIN_STEPS = 10
+MC_FIT_STEPS = 20
+MC_FIT_CHECKPOINT = 10
+MC_SPAWN_TIMEOUT = 600.0
 
 
 def log(*args):
@@ -3125,6 +3172,350 @@ def phase_sort_harness(torch, gt):
     return res["sort_harness"]
 
 
+# ------------------------------------------------------------ multi-device
+def mc_modules():
+    import torch
+    import torch.distributed as dist
+
+    import gaussianrenderer_tpu_torch as gt
+    from gaussianrenderer_tpu_torch import parallel as par
+    from gaussianrenderer_tpu_torch.parallel import multichip as mc
+
+    return torch, dist, gt, par, mc
+
+
+def mc_synced_ms(torch, dist, mesh, fn, reps):
+    """Per-call ms of ``fn`` on this rank, every call started together on
+    all ranks (a barrier) and ended by a card synchronize; all values."""
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def mc_exchange_ms(torch, dist, mc, mesh, shard, camp, cfg, exchange, kw, reps):
+    """The record exchange alone, on this rank's projection of its shard:
+    synchronized ms of each call, and the bytes it sent and received."""
+    from gaussianrenderer_tpu_torch.ops.compositing import build_features
+    from gaussianrenderer_tpu_torch.ops.instances import encode_record_rows, u32_to_i32
+
+    proj = mc._probe(shard, camp, cfg)
+    if exchange == "gather32":
+        rec = torch.cat([build_features(proj), proj.tile_min.float(), proj.tile_max.float(),
+                         proj.depth[:, None], proj.valid.float()[:, None]], dim=-1)
+        fn = lambda: mc._all_gather(mesh, rec, 0)  # noqa: E731
+        sent = rec.numel() * 4
+    else:
+        rows = encode_record_rows(proj)
+        if exchange == "gather_q":
+            wire = u32_to_i32(rows).T.contiguous()
+            fn = lambda: mc._all_gather(mesh, wire, 0)  # noqa: E731
+            sent = wire.numel() * 4
+        else:
+            rects = kw.get("strip_rects")
+            bounds = None if rects is not None else kw.get("strip_bounds") or tuple(
+                i * (cfg.tiles_y // mesh.size) for i in range(mesh.size + 1))
+            fn = lambda: mc._exchange_a2a(  # noqa: E731
+                mesh, rows, proj.tile_min[:, 1], proj.tile_max[:, 1], proj.valid,
+                bounds=bounds, strip_rects=rects, tmin_x=proj.tile_min[:, 0],
+                tmax_x=proj.tile_max[:, 0])
+            sent = None
+    ms = mc_synced_ms(torch, dist, mesh, fn, reps)
+    if sent is None:
+        sent = mc.last_frame["records_sent"]
+    return {"ms_median": statistics.median(ms), "ms_all": ms, "bytes_sent": sent}
+
+
+def mc_frames_rank(mesh, cases, with_xla, frames):
+    """One rank of multichip-3m: bench_3m's single-device frame on this
+    rank, then each case of ``cases`` ((label, render_frame_multichip
+    kwargs)) through the multi-device main path. The compositor's count
+    is set to 0 just before a case's first frame and read after its timed
+    frames. With ``with_xla`` also the gather32 frame on the xla
+    compositor against the single-device xla frame."""
+    torch, dist, gt, par, mc = mc_modules()
+    scene, cam, cfg = bench_3m_setup(device=mesh.device)
+    camp = cam.params(cfg.k_sigma, device=mesh.device)
+    ref, ref_stats = gt.render_frame(scene, camp, cfg)
+    single_instances = int(ref_stats.num_instances)
+    shard = par.shard_scene(scene, mesh)
+    comp = gt.composite_tiles_packed
+    res = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+           "single_instances": single_instances, "shard_splats": shard.num_gaussians,
+           "shape": list(ref.shape)}
+    for label, kw in cases:
+        comp.launches = gt.table_lookup.launches = 0
+        fb, stats = par.render_frame_multichip(shard, camp, cfg, mesh, **kw)
+        torch.cuda.synchronize()
+        instances = int(mc.last_frame["instances"])
+        frame = {k: v for k, v in mc.last_frame.items() if k != "instances"}
+        ms = mc_synced_ms(torch, dist, mesh, lambda: par.render_frame_multichip(
+            shard, camp, cfg, mesh, **kw), frames)
+        launches = comp.launches
+        res[label] = {
+            "max_abs_err": float((fb - ref).abs().max()),
+            "finite": bool(torch.isfinite(fb).all()),
+            "shape": list(fb.shape),
+            "overflow": bool(stats["overflow"]),
+            "center_clipped": bool(stats["center_clipped"]),
+            "instances": instances,
+            "frame_ms_median": statistics.median(ms),
+            "frame_ms_all": ms,
+            "launches": launches,
+            "lookup_launches": gt.table_lookup.launches,
+            "bytes": frame,
+            "exchange": mc_exchange_ms(torch, dist, mc, mesh, shard, camp, cfg,
+                                       kw.get("exchange", "gather_q"), kw, frames),
+        }
+    if with_xla:
+        xcfg = dataclasses.replace(cfg, compositor="xla")
+        refx = gt.render_frame(scene, camp, xcfg)[0]
+        fbx, _ = par.render_frame_multichip(shard, camp, xcfg, mesh, exchange="gather32")
+        res["gather32_xla"] = {"max_abs_err": float((fbx - refx).abs().max()),
+                               "instances": int(mc.last_frame["instances"])}
+    return res
+
+
+def mc_check_frames(label, results, cases, atol):
+    for r in results:
+        for case, _ in cases:
+            c = r[case]
+            name = f"{label} rank {r['rank']} {case}"
+            check(c["finite"] and c["shape"] == r["shape"], f"{name}: frame {c['shape']}")
+            check(not c["overflow"], f"{name}: overflow")
+            check(c["max_abs_err"] <= atol, f"{name}: {c['max_abs_err']} from render_frame")
+            check(c["launches"] == MC_FRAMES + 1,
+                  f"{name}: {c['launches']} compositor launches in {MC_FRAMES + 1} frames")
+            check(c["lookup_launches"] == 0, f"{name}: lookups on the unculled path")
+    for case, _ in cases:
+        # Strips partition the tiles: their instances add up exactly.
+        total = sum(r[case]["instances"] for r in results)
+        check(total == results[0]["single_instances"],
+              f"{label} {case}: strips emit {total}, the single device "
+              f"{results[0]['single_instances']}")
+
+
+def phase_multichip_3m(torch, gt, big, card):
+    """multichip-3m: bench_3m through render_frame_multichip with D ranks
+    sharing the card over gloo: D = 2 on equal strips with each exchange
+    (and gather32 on the xla compositor), D = 4 on balanced strips and on
+    balanced rects under a2a_q, then a one-rank NCCL group; frames
+    against render_frame on each rank."""
+    from gaussianrenderer_tpu_torch import parallel as par
+
+    scene, cam, cfg = big
+    camp = cam.params(cfg.k_sigma, device=DEVICE)
+    bounds = par.balance_strips_for_scene(scene, camp, cfg, MC_D_BALANCED)
+    rects, slack = par.balance_rects_for_scene(scene, camp, cfg, MC_D_BALANCED)
+    eq_cases = [(ex, {"exchange": ex}) for ex in MC_EXCHANGES]
+    bal_cases = [("balanced_gather_q", {"exchange": "gather_q", "strip_bounds": bounds}),
+                 ("balanced_a2a_q", {"exchange": "a2a_q", "strip_bounds": bounds}),
+                 ("rects_a2a_q", {"exchange": "a2a_q", "strip_rects": rects})]
+    res = {"card": card, "shared_card": True, "bounds": bounds, "rects": rects,
+           "rect_slack": slack}
+    t0 = time.perf_counter()
+    d2 = par.spawn(mc_frames_rank, MC_D_SMALL, eq_cases, True, MC_FRAMES, backend="gloo",
+                   device=DEVICE, timeout=MC_SPAWN_TIMEOUT)
+    res["d2_seconds"] = time.perf_counter() - t0
+    out({"multichip_3m": "D=2 gloo, one card", "card": card, "ranks": d2})
+    mc_check_frames("D=2", d2, eq_cases, MC_ATOL_PACKED)
+    for r in d2:
+        check(r["gather32_xla"]["max_abs_err"] <= MC_ATOL_F32,
+              f"D=2 rank {r['rank']} gather32 xla: {r['gather32_xla']['max_abs_err']}")
+    t0 = time.perf_counter()
+    d4 = par.spawn(mc_frames_rank, MC_D_BALANCED, bal_cases, False, MC_FRAMES,
+                   backend="gloo", device=DEVICE, timeout=MC_SPAWN_TIMEOUT)
+    res["d4_seconds"] = time.perf_counter() - t0
+    out({"multichip_3m": "D=4 gloo, one card", "card": card, "bounds": bounds,
+         "rects": rects, "rect_slack": slack, "ranks": d4})
+    mc_check_frames("D=4", d4, bal_cases, MC_ATOL_PACKED)
+    t0 = time.perf_counter()
+    d1 = par.spawn(mc_frames_rank, 1, eq_cases, False, MC_NCCL_FRAMES, backend="nccl",
+                   device=DEVICE,
+                   timeout=MC_SPAWN_TIMEOUT)
+    res["nccl_seconds"] = time.perf_counter() - t0
+    out({"multichip_3m": "D=1 nccl", "card": card, "ranks": d1})
+    for case, _ in eq_cases:
+        c = d1[0][case]
+        check(d1[0]["backend"] == "nccl" and c["max_abs_err"] == 0.0,
+              f"one-rank NCCL {case}: {c['max_abs_err']} from render_frame")
+        check(c["instances"] == d1[0]["single_instances"], f"one-rank NCCL {case}: instances")
+        check(c["launches"] == MC_NCCL_FRAMES + 1,
+              f"one-rank NCCL {case}: {c['launches']} launches in {MC_NCCL_FRAMES + 1} frames")
+    launches = {"d2": {c: [r[c]["launches"] for r in d2] for c, _ in eq_cases},
+                "d4": {c: [r[c]["launches"] for r in d4] for c, _ in bal_cases},
+                "nccl": {c: d1[0][c]["launches"] for c, _ in eq_cases}}
+    res.update({"d2": d2, "d4": d4, "nccl": d1, "launches": launches,
+                "kernel_launches": sum(v for g in ("d2", "d4") for c in launches[g].values()
+                                       for v in c) + sum(launches["nccl"].values())})
+    return res
+
+
+class GradKeeper:
+    """An optimizer that keeps the first gradients it is given and hands
+    every step on to ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params=None):
+        if self.grads is None:
+            self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+def mc_train_rank(mesh, bounds, ckpt_dir):
+    """One rank of multichip-train-500k: the single-device first step's
+    gradients (MSE, the 3DGS Adam), then MC_TRAIN_STEPS mesh steps from
+    the same start with the train kernels' counts set to 0 just before
+    and read just after, then fit_scene(mesh) for MC_FIT_STEPS with a
+    checkpoint every MC_FIT_CHECKPOINT steps and a resume from the first."""
+    import hashlib
+
+    torch, dist, gt, par, mc = mc_modules()
+    from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    scene = trained_500k_setup(device=mesh.device)[0]
+    cfg = train_500k_config(gt)
+    cams = train_poses(gt, cfg)
+    truth = gt.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        targets = [gt.render_for_training(truth, c, cfg) for c in cams]
+    params0 = perturbed(torch, gt, truth)
+    n = params0.positions.shape[0]
+    keep1 = GradKeeper(gt.make_3dgs_optimizer())
+    step1, _ = gt.make_train_step(cfg, optimizer=keep1, loss_fn=gt.mse_loss)
+    _, _, loss1 = step1(params0, keep1.init(params0), cams[0], targets[0])
+
+    keep = GradKeeper(gt.make_3dgs_optimizer())
+    step, _ = gt.make_multichip_train_step(cfg, mesh, keep, strip_bounds=bounds)
+    params = ptrain._mesh_shard(gt.pad_params_for_mesh(params0, mesh.size), mesh)
+    state = keep.init(params)
+    padded = [gt.pad_target_for_mesh(t, cfg) for t in targets]
+    ns = params.positions.shape[0]
+    lo, hi = mesh.rank * ns, min((mesh.rank + 1) * ns, n)
+    losses, step_ms = [], []
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    gt.composite_tiles_packed.launches = 0
+    for s in range(MC_TRAIN_STEPS):
+        i = s % TRAIN_POSES
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, cams[i], padded[i])
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {"tile_train_fwd": tt.train_forward.launches,
+                "tile_train_bwd": tt.train_backward.launches,
+                "tile_render2": gt.composite_tiles_packed.launches}
+    instances = int(mc.last_frame["instances"])
+    grad_rel = {}
+    for name, g1, gm in zip(gt.SceneParams._fields, keep1.grads, keep.grads):
+        if g1 is None:
+            continue
+        scale = float(torch.nan_to_num(g1).abs().max())
+        d = torch.nan_to_num(gm[: hi - lo] - g1[lo:hi]).abs().max()
+        grad_rel[name] = float(d) / max(scale, 1e-30)
+    finite = all(bool(torch.isfinite(p[: hi - lo])[torch.isfinite(p0[lo:hi])].all())
+                 for p, p0 in zip(params, params0) if p is not None)
+
+    views = list(zip(cams, targets))
+    tt.train_forward.launches = tt.train_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, hist = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
+                                strip_bounds=bounds, checkpoint_dir=ckpt_dir,
+                                checkpoint_every=MC_FIT_CHECKPOINT, log_every=5)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0) / MC_FIT_STEPS
+    fit_launches = {"tile_train_fwd": tt.train_forward.launches,
+                    "tile_train_bwd": tt.train_backward.launches}
+    first = os.path.join(ckpt_dir, f"step_{MC_FIT_CHECKPOINT:06d}")
+    _, resumed = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
+                              strip_bounds=bounds, resume_from=first, log_every=5)
+    digest = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+              for k, v in fitted._asdict().items() if v is not None}
+    return {"rank": mesh.rank, "backend": mesh.backend, "shard_rows": [lo, hi],
+            "single_loss": float(loss1), "losses": losses, "step_ms_median":
+            statistics.median(step_ms), "step_ms_all": step_ms, "launches": launches,
+            "instances_last_step": instances, "grad_max_rel": grad_rel,
+            "finite_params_stay_finite": finite, "fit_losses": hist["losses"],
+            "fit_ms_per_step": fit_ms, "fit_launches": fit_launches,
+            "resumed_losses": resumed["losses"], "fitted_sha256": digest,
+            "fitted_splats": int(fitted.positions.shape[0])}
+
+
+def phase_multichip_train(torch, gt, scene, card):
+    """multichip-train-500k: make_multichip_train_step and
+    fit_scene(mesh) on data/trained_500k.ply at its fitting config
+    (640×480, 15 tile rows: balanced strips) with MC_D_SMALL ranks
+    sharing the card over gloo."""
+    from gaussianrenderer_tpu_torch import parallel as par
+
+    cfg = train_500k_config(gt)
+    cams = train_poses(gt, cfg)
+    bounds = par.balance_strips_for_scene(scene, cams[0], cfg, MC_D_SMALL)
+    ckpt = fit_dir("multichip_fit")
+    t0 = time.perf_counter()
+    ranks = par.spawn(mc_train_rank, MC_D_SMALL, bounds, ckpt, backend="gloo", device=DEVICE,
+                      timeout=MC_SPAWN_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    out({"multichip_train_500k": f"D={MC_D_SMALL} gloo, one card", "card": card,
+         "bounds": bounds, "seconds": seconds, "ranks": ranks})
+    for r in ranks:
+        name = f"multichip-train rank {r['rank']}"
+        losses = r["losses"]
+        check(all(math.isfinite(v) for v in losses), f"{name}: loss {losses}")
+        check(losses == ranks[0]["losses"], f"{name}: losses differ between ranks")
+        check(abs(losses[0] - r["single_loss"]) <= MC_GRAD_REL * r["single_loss"],
+              f"{name}: first loss {losses[0]} vs single device {r['single_loss']}")
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(last < first, f"{name}: loss did not fall ({first:.5g} → {last:.5g})")
+        check(all(v <= MC_GRAD_REL for v in r["grad_max_rel"].values()),
+              f"{name}: gradients {r['grad_max_rel']} from the single device's")
+        check(r["launches"]["tile_train_fwd"] == MC_TRAIN_STEPS
+              and r["launches"]["tile_train_bwd"] == MC_TRAIN_STEPS,
+              f"{name}: train kernel calls {r['launches']} in {MC_TRAIN_STEPS} steps")
+        check(r["finite_params_stay_finite"], f"{name}: a finite parameter became non-finite")
+        fit = r["fit_losses"]
+        check(len(fit) == MC_FIT_STEPS and all(math.isfinite(v) for v in fit),
+              f"{name}: fit losses {fit}")
+        check(statistics.mean(fit[-3:]) < statistics.mean(fit[:3]), f"{name}: fit did not fall")
+        check(r["fit_launches"]["tile_train_fwd"] == MC_FIT_STEPS
+              and r["fit_launches"]["tile_train_bwd"] == MC_FIT_STEPS,
+              f"{name}: fit kernel calls {r['fit_launches']}")
+        res_l = r["resumed_losses"]
+        ref_l = fit[MC_FIT_CHECKPOINT:]
+        check(len(res_l) == len(ref_l) and all(
+            abs(a - b) <= FIT_RESUME_REL * abs(b) for a, b in zip(res_l, ref_l)),
+            f"{name}: resumed losses {res_l} vs {ref_l}")
+        check(r["fitted_splats"] == scene.num_gaussians, f"{name}: fitted N")
+        check(r["fitted_sha256"] == ranks[0]["fitted_sha256"], f"{name}: fitted params differ")
+    # Rank 0's last checkpoint is the whole un-padded state a single-device
+    # load_checkpoint reads, bit for bit the params every rank returned.
+    import hashlib
+
+    template = gt.SceneParams.from_scene(scene)
+    loaded, _, _, at = gt.load_checkpoint(os.path.join(ckpt, f"step_{MC_FIT_STEPS:06d}"),
+                                          template)
+    digest = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+              for k, v in loaded._asdict().items() if v is not None}
+    check(at == MC_FIT_STEPS and digest == ranks[0]["fitted_sha256"],
+          "multichip-train: the mesh checkpoint does not hold the fitted params")
+    launches = {k: sum(r["launches"][k] + r["fit_launches"].get(k, 0) for r in ranks)
+                for k in ("tile_train_fwd", "tile_train_bwd")}
+    return {"ranks": ranks, "bounds": bounds, "seconds": seconds, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3196,7 +3587,12 @@ def main() -> int:
 
     with Phase("session-3m", torch):
         sess3m = phase_session(torch, gt, "bench_3m", big, card)
-    del big, big_inst, inst3m
+    del big_inst, inst3m
+    torch.cuda.empty_cache()
+
+    with Phase("multichip-3m", torch):
+        mc3m = phase_multichip_3m(torch, gt, big, card)
+    del big
     torch.cuda.empty_cache()
 
     with Phase("full-trained-500k", torch):
@@ -3226,6 +3622,9 @@ def main() -> int:
 
     with Phase("fit-app", torch):
         fit_app_res = phase_fit_app(torch, gt, scene500, card)
+
+    with Phase("multichip-train-500k", torch):
+        mctrain = phase_multichip_train(torch, gt, scene500, card)
     del scene500
     torch.cuda.empty_cache()
 
@@ -3264,8 +3663,10 @@ def main() -> int:
         "replaces": "gaussianrenderer_tpu/ops/pallas/tile_render2.py:158",
         "launches": (res3m["kernel_launches"] + formats_res["kernel_launches"]
                      + colmap_res["kernel_launches"]["tile_render2"]
-                     + viewer_res["kernel_launches"]["tile_render2"]),
+                     + viewer_res["kernel_launches"]["tile_render2"]
+                     + mc3m["kernel_launches"]),
         "launches_by_phase": {"full-3m": res3m["kernel_launches"],
+                              "multichip-3m (all ranks)": mc3m["kernel_launches"],
                               "formats-2m": formats_res["kernel_launches"],
                               "colmap-fit (apps/eval --path packed)":
                                   colmap_res["kernel_launches"]["tile_render2"],
@@ -3321,9 +3722,11 @@ def main() -> int:
         "launches": (train_res["kernel_launches"][f"tile_train_{kind}"]
                      + colmap_res["kernel_launches"][f"tile_train_{kind}"]
                      + blender_res["kernel_launches"][f"tile_train_{kind}"]
-                     + viewer_res["kernel_launches"][f"tile_train_{kind}"]),
+                     + viewer_res["kernel_launches"][f"tile_train_{kind}"]
+                     + mctrain["launches"][f"tile_train_{kind}"]),
         "launches_by_phase": {
             "train-500k": train_res["kernel_launches"][f"tile_train_{kind}"],
+            "multichip-train-500k (all ranks)": mctrain["launches"][f"tile_train_{kind}"],
             "colmap-fit": colmap_res["kernel_launches"][f"tile_train_{kind}"],
             "blender-fit": blender_res["kernel_launches"][f"tile_train_{kind}"],
             "viewer-2m (apps/fit --serve)":

@@ -48,6 +48,16 @@ where every kernel's plain PyTorch version runs instead.
     fb, stats = canvas.render(); img = canvas.draw()   # (H, W, 3) uint8
     canvas.serve(port=8800)                            # blocks; a browser drives it
 
+    # Several devices (parallel/multichip.py): one rank per process, each
+    # with its block of the splats; every rank gets the whole frame. Run
+    # under `torchrun --nproc-per-node D` (make_mesh() on the default
+    # group) or started by parallel.spawn(fn, D).
+    from gaussianrenderer_tpu_torch import parallel
+    mesh = parallel.make_mesh()
+    fb, stats = parallel.render_frame_multichip(parallel.shard_scene(scene, mesh),
+                                                cam.params(3.0), cfg, mesh, exchange="a2a_q")
+    params, history = gt.fit_scene(views, cfg, params, steps=3000, mesh=mesh)
+
     # The harnesses' kernels: the blocked bf16 GEMM and the bitonic block
     # sort (apps/matrix_test, apps/radix_test, apps/onesweep).
     c = gt.matmul_blocked(a_bf16, b_bf16, bm=128, bn=128, bk=128)  # f32
@@ -139,9 +149,12 @@ from gaussianrenderer_tpu_torch.train import (
     load_checkpoint,
     load_views,
     make_3dgs_optimizer,
+    make_multichip_train_step,
     make_optimizer,
     make_train_step,
     mse_loss,
+    pad_params_for_mesh,
+    pad_target_for_mesh,
     psnr,
     render_for_training,
     reset_opacity,
@@ -191,6 +204,7 @@ __all__ = [
     "make_3dgs_optimizer",
     "make_clustered_scene",
     "make_optimizer",
+    "make_multichip_train_step",
     "make_random_scene",
     "make_renderer",
     "make_surface_scene",
@@ -204,6 +218,8 @@ __all__ = [
     "parse_color",
     "preprocess_gaussians",
     "prune_scene",
+    "pad_params_for_mesh",
+    "pad_target_for_mesh",
     "psnr",
     "radix_sort_u32",
     "render_for_training",

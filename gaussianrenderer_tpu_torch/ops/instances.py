@@ -169,6 +169,13 @@ def _center_fields(cx, cy, tmin_x, tmin_y, rect_w, rect_h, tile_w, tile_h):
     return cq, fine_bad, fine_bad & coarse_bad
 
 
+def _center_q(c_px: torch.Tensor) -> torch.Tensor:
+    """Screen pixel coordinate → the screen-fixed 13.3 carrier (int64 in
+    [0, 65535]); exact for integer-quantized centers."""
+    q = to_int32(torch.round(c_px * CENTER_SCALE)).to(torch.int64) + CQ_BIAS
+    return torch.clamp(q, 0, 65535)
+
+
 def _cq_decode(qx, qy, coarse):
     """Carrier ints → f32 screen pixel center, as the kernel sees it."""
     scale = torch.where(coarse, 1.0, 1.0 / CENTER_SCALE)
@@ -236,6 +243,134 @@ def _tile_dead(prune, cx, cy, x0, y0, xmin, ymin, xmax, ymax, tile_w, tile_h):
     mn = torch.where(vx | vy, mn, 0.0)
     empty = (hx < lx) | (hy < ly)
     return empty | (mn > gain_m)
+
+
+def packed_valid_np(valid, opacity):
+    """The packed emitter's validity rule on host arrays: projection-valid
+    and 16-bit-quantized opacity ≥ ALPHA_EPS, the population
+    :func:`build_packed_instances` emits. The calibration probes
+    (``parallel.strip_row_loads`` and the rect and cap probes) share it."""
+    import numpy as np
+
+    op_q = np.round(np.asarray(opacity) * COLOR_SCALE) / COLOR_SCALE
+    return np.asarray(valid) & (op_q >= ALPHA_EPS)
+
+
+#: u32 words per splat of the multi-device exchange record (28 B a splat,
+#: where the f32 record of the ``gather32`` exchange is 22 words, 88 B).
+EXCHANGE_ROWS = 7
+_VALID_BIT = 1 << 30
+_SAT_BIT = 1 << 31
+
+
+def encode_record_rows(proj: ProjectedGaussians) -> torch.Tensor:
+    """Projected splats → the quantized 28 B multi-device exchange record,
+    (7, N) int64 holding u32 words (send them as ``u32_to_i32``):
+
+      row 0: screen-fixed center, 13.3 fixed point, or 1-px COARSE units
+             where the 13.3 window would clip (flagged in row 4 bit 31)
+      row 1: chol u | chol w           (e6m10)
+      row 2: chol v | opacity          (s1e6m9 | u16)
+      row 3: r|g|b 10-bit | valid << 30 | center-saturated << 31
+      row 4: pixel AABB x (xmin << 16 | xmax; bit 31 the coarse flag)
+      row 5: pixel AABB y (ymin << 16 | ymax)
+      row 6: camera-space depth (f32 bits, so the frame-sort key is the
+             single device's)
+
+    The same encodings as the packed sort rows, bit for bit the JAX
+    package's. Tile rects do not travel: :func:`decode_record_rows`
+    re-derives them from the AABB. The center-saturated bit marks a
+    center beyond even the coarse window before the clip, for the
+    ``center_clipped`` stat."""
+    op16 = _color_bits(proj.opacity)
+    ch_u, ch_v, ch_w = _conic_chol(proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2])
+    ac = (_enc_e6m10(ch_u) << 16) | _enc_e6m10(ch_w)
+    bop = (_enc_s1e6m9(ch_v) << 16) | op16
+    cx, cy = proj.center_px[:, 0], proj.center_px[:, 1]
+
+    def raw(c, scale):
+        return to_int32(torch.round(c * scale)).to(torch.int64) + CQ_BIAS
+
+    qx_raw, qy_raw = raw(cx, CENTER_SCALE), raw(cy, CENTER_SCALE)
+    wire_coarse = (qx_raw < 0) | (qx_raw > 65535) | (qy_raw < 0) | (qy_raw > 65535)
+    qxc, qyc = raw(cx, 1.0), raw(cy, 1.0)
+    sat = wire_coarse & ((qxc < 0) | (qxc > 65535) | (qyc < 0) | (qyc > 65535))
+    qx = torch.where(wire_coarse, torch.clamp(qxc, 0, 65535), _center_q(cx))
+    qy = torch.where(wire_coarse, torch.clamp(qyc, 0, 65535), _center_q(cy))
+    cq = (qx << 16) | qy
+    rgbf = (
+        _rgb10_bits(proj.color)
+        | torch.where(proj.valid, _VALID_BIT, 0)
+        | torch.where(sat, _SAT_BIT, 0)
+    )
+
+    def u16(x, hi):
+        return to_int32(torch.clamp(x, 0, hi)).to(torch.int64)
+
+    a = proj.aabb_px
+    ax = (u16(a[:, 0], 32767) << 16) | u16(a[:, 2], 65535) | torch.where(
+        wire_coarse, 1 << 31, 0
+    )
+    ay = (u16(a[:, 1], 65535) << 16) | u16(a[:, 3], 65535)
+    return torch.stack([cq, ac, bop, rgbf, ax, ay, _f32_bits(proj.depth)], dim=0)
+
+
+def decode_record_rows(
+    rows: torch.Tensor,
+    *,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+) -> Tuple[ProjectedGaussians, torch.Tensor]:
+    """(7, N) exchange record (int64 u32 words) → ``(ProjectedGaussians in
+    global screen coordinates, per-splat center-saturated flag)``.
+
+    Every field decodes to the value the packed pipeline's own quantizers
+    reproduce, so re-encoding is idempotent; the conic decodes as
+    (u², 2uv, v² + w²), whose re-derived ``w`` may move by an ulp. Tile
+    rects are re-derived from the AABB by projection's integer stride
+    division."""
+    cq, ac, bop, rgbf, ax, ay, dep = (rows[i] for i in range(EXCHANGE_ROWS))
+    f32 = torch.float32
+    valid = (rgbf & _VALID_BIT) != 0
+    sat = (rgbf & _SAT_BIT) != 0
+    # f32 reciprocals as tensors, so the products round as the JAX
+    # package's f32 multiplies do.
+    inv_rgb = torch.tensor(1.0 / RGB_SCALE, dtype=f32, device=rows.device)
+    inv_op = torch.tensor(1.0 / COLOR_SCALE, dtype=f32, device=rows.device)
+    color = torch.stack([((rgbf >> s) & 1023).to(f32) * inv_rgb for s in (0, 10, 20)],
+                        dim=-1)
+    opacity = (bop & 0xFFFF).to(f32) * inv_op
+    conic = torch.stack(
+        _chol_conic(_dec_e6m10(ac >> 16), _dec_s1e6m9(bop >> 16), _dec_e6m10(ac & 0xFFFF)),
+        dim=-1,
+    )
+    wire_coarse = (ax >> 31) != 0
+    cx, cy = _cq_decode(cq >> 16, cq & 0xFFFF, wire_coarse)
+    xmin = (ax >> 16) & 0x7FFF
+    xmax = ax & 0xFFFF
+    ymin = ay >> 16
+    ymax = ay & 0xFFFF
+    aabb_px = torch.stack([xmin, ymin, xmax, ymax], dim=-1).to(f32)
+
+    def tile(px, stride, count):
+        return torch.clamp(px // stride, 0, count - 1)
+
+    tx0, tx1 = tile(xmin, tile_w, tiles_x), tile(xmax, tile_w, tiles_x)
+    ty0, ty1 = tile(ymin, tile_h, tiles_y), tile(ymax, tile_h, tiles_y)
+    proj = ProjectedGaussians(
+        valid=valid,
+        depth=_bits_f32(dep),
+        color=color,
+        opacity=opacity,
+        center_px=torch.stack([cx, cy], dim=-1),
+        conic=conic,
+        aabb_px=aabb_px,
+        tile_min=torch.stack([tx0, ty0], dim=-1).to(torch.int32),
+        tile_max=torch.stack([tx1, ty1], dim=-1).to(torch.int32),
+    )
+    return proj, sat
 
 
 class _Prepack(NamedTuple):

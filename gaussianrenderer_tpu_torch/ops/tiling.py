@@ -47,18 +47,25 @@ def build_sorted_instances(
     depth_scale: float = 1.0e6,
     near=0.1,
     far=100.0,
+    depth_bits: Optional[int] = None,
 ) -> TileAssignment:
     """Expand per-Gaussian tile rects into a sorted instance list.
 
     ``capacity`` and ``depth_scale`` are accepted for the JAX package's
     call signature and change nothing: there is no static buffer to size,
     and the key is the packed emitter's ``depth_bits`` rule (the JAX
-    function ignores ``depth_scale`` too).
+    function ignores ``depth_scale`` too). ``depth_bits`` overrides the
+    key's depth width, which by default comes from ``num_tiles``: a
+    multi-device strip passes the whole grid's, so that it quantizes depth
+    as the single device does.
     """
     del capacity, depth_scale
     device = proj.depth.device
     tile_bits = max(int(num_tiles).bit_length(), 1)
-    depth_bits = min(32 - tile_bits, 24)
+    if depth_bits is None:
+        depth_bits = min(32 - tile_bits, 24)
+    if tile_bits + depth_bits > 32:
+        raise ValueError(f"tile_bits {tile_bits} + depth_bits {depth_bits} > 32")
 
     i64 = torch.int64
     tmin_x = proj.tile_min[:, 0].to(i64)

@@ -42,6 +42,25 @@ class GaussianScene(NamedTuple):
     def device(self) -> torch.device:
         return self.positions.device
 
+    def pad_to(self, capacity: int) -> "GaussianScene":
+        """Pad to ``capacity`` splats with fully transparent ones: opacity
+        0 (they never contribute), zeros elsewhere and unit quaternions."""
+        n = self.num_gaussians
+        if capacity < n:
+            raise ValueError(f"capacity {capacity} < scene size {n}")
+        if capacity == n:
+            return self
+
+        def pad(x):
+            if x is None:
+                return None
+            return torch.cat([x, x.new_zeros((capacity - n,) + tuple(x.shape[1:]))])
+
+        quats = pad(self.quats)
+        quats[n:, 0] = 1.0
+        return GaussianScene(pad(self.positions), pad(self.sh), pad(self.opacity),
+                             pad(self.scales), quats, pad(self.time_params))
+
     def reorder(self, order: torch.Tensor) -> "GaussianScene":
         order = order.to(self.device)
         return GaussianScene(*(None if x is None else x[order] for x in self))

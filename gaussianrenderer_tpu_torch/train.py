@@ -1,5 +1,4 @@
-"""Gaussian-splat optimization on one device (PyTorch port of the
-single-device parts of ``train.py``).
+"""Gaussian-splat optimization (PyTorch port of ``train.py``).
 
 * :class:`SceneParams` — trainable pre-activation parameters (logit
   opacity, log scales), the PLY convention, so a trained scene converts
@@ -24,6 +23,10 @@ single-device parts of ``train.py``).
   opacity resets, SH warm-up, checkpoints, resume); :func:`evaluate`,
   :func:`load_views` / :func:`dataset_image_shape` for ``poses.json``
   datasets, :func:`save_checkpoint` / :func:`load_checkpoint`.
+* Several devices: :func:`make_multichip_train_step` (each rank trains
+  its block of splats on its strip of the frame, ``parallel.multichip``),
+  :func:`pad_params_for_mesh`, :func:`pad_target_for_mesh`, and
+  ``fit_scene(mesh=...)``.
 
 The optimizer is functional, like optax: ``opt.init(params)`` makes the
 state, ``opt.update(grads, state)`` returns the updates and the new state,
@@ -412,6 +415,133 @@ def _or_zeros(g, p):
     return torch.zeros_like(p) if g is None else g
 
 
+# --------------------------------------------------------------- multi-device
+def make_multichip_train_step(cfg: RenderConfig, mesh, optimizer: Optional[Adam] = None,
+                              strip_bounds=None, with_stats: bool = False):
+    """The mesh-parallel train step; returns ``(step, optimizer)``.
+
+    Every rank calls ``step(params, opt_state, cam, target) → (params,
+    opt_state, loss[, overflow])`` with its own shard of the parameters
+    (rows ``[rank·N/D, (rank+1)·N/D)`` of :func:`pad_params_for_mesh`'s
+    output), its own Adam state, the camera, and the whole target padded
+    by :func:`pad_target_for_mesh`. Each rank renders its strip through
+    the differentiable multi-device path (``parallel.multichip``, the
+    ``gather32`` exchange), takes the squared error over the strip rows
+    it owns and backpropagates that error alone: the all-gather's
+    backward sums every rank's feature gradients onto the owning rank, so
+    each shard gets its rows of the single device's MSE gradient. The
+    returned loss is ``all_reduce(Σ error) / (3·H·W)``, the same on every
+    rank, and carries no gradient. Adam updates each shard locally.
+
+    ``strip_bounds`` (``parallel.balance_strips_for_scene``) balances the
+    strips as in ``render_frame_multichip``; without it ``cfg.tiles_y``
+    must divide by D. ``with_stats`` adds ``overflow``, always False: the
+    port has no instance capacity to truncate."""
+    import torch.distributed as dist
+
+    from gaussianrenderer_tpu_torch.parallel.multichip import (
+        _all_reduce,
+        _strip_render,
+        strip_geometry,
+    )
+
+    optimizer = optimizer or make_optimizer()
+    d = mesh.size
+    if strip_bounds is None:
+        diffs = None
+        if cfg.tiles_y % d != 0:
+            raise ValueError(
+                f"tiles_y={cfg.tiles_y} must be divisible by the mesh "
+                f"size {d} (or pass balanced strip_bounds)"
+            )
+    else:
+        strip_bounds = tuple(int(b) for b in strip_bounds)
+        diffs, rows_max = strip_geometry(strip_bounds, d, cfg.tiles_y)
+    train_cfg = _training_config(cfg)
+    total_px = 3 * cfg.height * cfg.width
+
+    def step(params: SceneParams, opt_state: AdamState, cam: CameraParams, target):
+        leaves = SceneParams(*(
+            None if p is None else p.detach().requires_grad_(True) for p in params
+        ))
+        fb_strip, overflow, _ = _strip_render(
+            leaves.to_scene(), cam, train_cfg, mesh, "diff", strip_bounds=strip_bounds)
+        h = fb_strip.shape[1]
+        rows = torch.arange(h, device=fb_strip.device)
+        if strip_bounds is None:
+            row0 = mesh.rank * h
+            rows_valid = (row0 + rows) < cfg.height
+        else:
+            row0 = strip_bounds[mesh.rank] * cfg.tile_h
+            rows_valid = (rows < diffs[mesh.rank] * cfg.tile_h) & ((row0 + rows) < cfg.height)
+            need_h = (cfg.tiles_y + rows_max) * cfg.tile_h
+            target = torch.nn.functional.pad(target, (0, 0, 0, need_h - target.shape[1]))
+        target_local = target[:, row0:row0 + h, :]
+        err = torch.sum((fb_strip - target_local) ** 2 * rows_valid[None, :, None])
+        live = [p for p in leaves if p is not None]
+        grads = iter(torch.autograd.grad(err / total_px, live, allow_unused=True))
+        grads_tree = SceneParams(*(
+            None if p is None else _or_zeros(next(grads), p) for p in leaves
+        ))
+        with torch.no_grad():
+            loss = _all_reduce(mesh, err.detach(), dist.ReduceOp.SUM) / total_px
+            updates, opt_state = optimizer.update(grads_tree, opt_state, params)
+            params = apply_updates(SceneParams(*(
+                None if p is None else p.detach() for p in params)), updates)
+        if with_stats:
+            return params, opt_state, loss, overflow
+        return params, opt_state, loss
+
+    return step, optimizer
+
+
+def pad_target_for_mesh(target: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """A (3, H, W) target with its rows padded to the whole tile grid, so
+    strips slice it at tile rows; the pad rows are masked out of the loss."""
+    return torch.nn.functional.pad(target, (0, 0, 0, cfg.tiles_y * cfg.tile_h - target.shape[1]))
+
+
+#: Pad-row values of :func:`pad_params_for_mesh`: inert splats.
+_MESH_PAD_FILL = {"raw_opacity": -30.0, "raw_scales": -20.0}
+
+
+def pad_params_for_mesh(params: SceneParams, multiple: int) -> SceneParams:
+    """Pad N up to a multiple of the mesh size with inert splats:
+    raw_opacity −30 (sigmoid ≈ 9e−14, below every alpha threshold, so they
+    render nothing and get exactly zero gradient, and Adam leaves them as
+    they are), raw_scales −20, unit quaternions and zeros elsewhere. A
+    zero pad would not do: raw opacity 0 is opacity 0.5."""
+    n = params.positions.shape[0]
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return params
+
+    def pad(name, x):
+        if x is None:
+            return None
+        fill = x.new_full((n_pad - n,) + tuple(x.shape[1:]), _MESH_PAD_FILL.get(name, 0.0))
+        if name == "quats":
+            fill[:, 0] = 1.0
+        return torch.cat([x, fill])
+
+    return SceneParams(*(pad(k, v) for k, v in params._asdict().items()))
+
+
+def _mesh_gather(tree, mesh, n: int):
+    """A SceneParams-like tree of row shards → the whole rows ``[0, n)``
+    on every rank."""
+    from gaussianrenderer_tpu_torch.parallel.multichip import gather_rows
+
+    with torch.no_grad():
+        return type(tree)(*(None if x is None else gather_rows(mesh, x)[:n] for x in tree))
+
+
+def _mesh_shard(tree, mesh):
+    from gaussianrenderer_tpu_torch.parallel.multichip import _shard_rows
+
+    return type(tree)(*(_shard_rows(x, mesh) for x in tree))
+
+
 # ------------------------------------------------- adaptive density control
 class DensifyState(NamedTuple):
     """Accumulated densification statistics (leading dim N): the 3DGS
@@ -653,20 +783,28 @@ def fit_scene(
     without densify state restores params and moments) and continues
     every cadence from its step.
 
-    ``mesh`` and ``strip_bounds`` (multi-device fits) are not ported and
-    ``mesh`` raises. ``auto_capacity`` is accepted and not read: the
-    JAX package sizes a static instance buffer, and the port's emission
-    has none, so ``history["overflow"]`` is always ``[]``.
+    With ``mesh`` (``parallel.make_mesh()``; every rank calls this with
+    the same views and the whole ``params``) the loop runs mesh-parallel
+    through :func:`make_multichip_train_step`, with optional balanced
+    ``strip_bounds``: the params are padded with inert splats
+    (:func:`pad_params_for_mesh`) and each rank trains its block of rows;
+    targets are padded to the tile grid. Densification, SH warm-up, timed
+    views and other losses stay single-device (``ValueError``). Opacity
+    resets, callbacks and loss draining run as on one device; the
+    snapshot hook gets the whole params. Checkpoints hold the whole
+    un-padded state, written by rank 0 (a single-device
+    :func:`load_checkpoint` reads them), and a resume restores each
+    rank's rows (``load_checkpoint(..., mesh=mesh)``). Every rank returns
+    the whole un-padded params.
+
+    ``auto_capacity`` is accepted and not read: the JAX package sizes a
+    static instance buffer, and the port's emission has none, so
+    ``history["overflow"]`` is always ``[]``.
 
     Returns ``(params, {"losses", "densify", "overflow"})``: per-step
     losses as floats and per-episode ``{"step", "recycled", "dead",
     "eligible"}`` records."""
-    del strip_bounds, auto_capacity
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_scene(mesh=...): multi-device fitting is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+    del auto_capacity
     views = list(views)
     if not views:
         raise ValueError("fit_scene needs at least one (cam, target) view")
@@ -677,6 +815,25 @@ def fit_scene(
     timed = arities == {3}
     optimizer = optimizer or make_3dgs_optimizer(position_lr_max_steps=steps)
     loss_fn = loss_fn or mse_loss
+    if mesh is not None:
+        # Densify's global sorts would gather the whole scene each episode.
+        if timed:
+            raise ValueError("timed views are single-chip only (mesh=None)")
+        if densify_every:
+            raise ValueError("densify_every requires mesh=None")
+        if sh_warmup_every:
+            raise ValueError("sh_warmup_every requires mesh=None")
+        if loss_fn is not mse_loss:
+            raise ValueError(
+                "mesh mode uses the strip-masked loss built into "
+                "make_multichip_train_step; pass loss_fn=None"
+            )
+        return _fit_scene_mesh(
+            views, cfg, params, mesh, strip_bounds=strip_bounds, steps=steps,
+            optimizer=optimizer, opacity_reset_every=opacity_reset_every,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            log_fn=log_fn, log_every=log_every, snapshot_fn=snapshot_fn,
+            snapshot_every=snapshot_every, resume_from=resume_from)
 
     n = params.positions.shape[0]
     dev = params.positions.device
@@ -765,6 +922,56 @@ def fit_scene(
             snapshot_fn(done, params, losses[-1])
     _drain_losses(pending, losses)
     return params, {"losses": losses, "densify": episodes, "overflow": []}
+
+
+def _fit_scene_mesh(views, cfg, params, mesh, *, strip_bounds, steps, optimizer,
+                    opacity_reset_every, checkpoint_dir, checkpoint_every, log_fn, log_every,
+                    snapshot_fn, snapshot_every, resume_from):
+    """:func:`fit_scene`'s mesh mode (its docstring)."""
+    n0 = params.positions.shape[0]
+    step_fn, optimizer = make_multichip_train_step(cfg, mesh, optimizer, strip_bounds,
+                                                   with_stats=True)
+    params = _mesh_shard(pad_params_for_mesh(params, mesh.size), mesh)
+    views = [(c, pad_target_for_mesh(t, cfg).to(mesh.device)) for c, t in views]
+    opt_state = optimizer.init(params)
+    start_step = 0
+    if resume_from:
+        params, opt_state, _, start_step = load_checkpoint(resume_from, params, opt_state,
+                                                           mesh=mesh)
+    losses, pending = [], []
+    for s in range(start_step, steps):
+        cam, target = views[s % len(views)]
+        params, opt_state, loss, _ = step_fn(params, opt_state, cam, target)
+        pending.append(loss)
+        done = s + 1
+        boundary = done % max(log_every, 1) == 0 or done == steps
+        if opacity_reset_every and done % opacity_reset_every == 0 and done < steps:
+            params, opt_state = reset_opacity(params, opt_state)
+        if checkpoint_dir and checkpoint_every and (
+                done % checkpoint_every == 0 or done == steps):
+            _save_mesh_checkpoint(os.path.join(checkpoint_dir, f"step_{done:06d}"),
+                                  params, opt_state, mesh, n0, done)
+        if boundary or (snapshot_fn and snapshot_every and done % snapshot_every == 0):
+            _drain_losses(pending, losses)
+        if log_fn and done % max(log_every, 1) == 0:
+            log_fn(done, losses[-1])
+        if snapshot_fn and snapshot_every and done % snapshot_every == 0:
+            snapshot_fn(done, _mesh_gather(params, mesh, n0), losses[-1])
+    _drain_losses(pending, losses)
+    return _mesh_gather(params, mesh, n0), {"losses": losses, "densify": [], "overflow": []}
+
+
+def _save_mesh_checkpoint(path, params, opt_state, mesh, n: int, step: int) -> None:
+    """The whole un-padded state, gathered from every rank's rows and
+    written by rank 0; every rank waits for the write."""
+    import torch.distributed as dist
+
+    full = _mesh_gather(params, mesh, n)
+    state = AdamState(opt_state.count, _mesh_gather(opt_state.mu, mesh, n),
+                      _mesh_gather(opt_state.nu, mesh, n))
+    if mesh.rank == 0:
+        save_checkpoint(path, full, state, step=step)
+    dist.barrier(group=mesh.group)
 
 
 def evaluate(params: Optional[SceneParams], views, cfg: RenderConfig, render_fn=None,
@@ -962,14 +1169,34 @@ def _restore(path: str, saved: dict, template):
     return type(template)(**out)
 
 
+def _mesh_rows(saved: dict, mesh, params: bool) -> dict:
+    """Saved whole leaves → this rank's rows of their mesh padding:
+    :func:`pad_params_for_mesh`'s inert rows for params, zeros for Adam
+    moments (the inert rows' gradient is 0, so their moments stay 0)."""
+    tree = SceneParams(**saved)
+    n = tree.positions.shape[0]
+    if params:
+        tree = pad_params_for_mesh(tree, mesh.size)
+    else:
+        pad = -(-n // mesh.size) * mesh.size - n
+        tree = SceneParams(*(None if x is None else torch.cat(
+            [x, x.new_zeros((pad,) + tuple(x.shape[1:]))]) for x in tree))
+    return _mesh_shard(tree, mesh)._asdict()
+
+
 def load_checkpoint(path: str, params: SceneParams, opt_state: Optional[AdamState] = None,
-                    densify_state: Optional[DensifyState] = None):
+                    densify_state: Optional[DensifyState] = None, mesh=None):
     """Restore a :func:`save_checkpoint` directory. The passed states are
     templates (the same budget N; a shape that differs raises
     ``ValueError``) and the tensors land on their devices. Returns
     ``(params, opt_state, densify, step)``, None for a template not
     passed: a full checkpoint restores params alone, and a template for a
-    part the checkpoint lacks raises ``ValueError``."""
+    part the checkpoint lacks raises ``ValueError``.
+
+    With ``mesh`` the templates are this rank's shards (rows of
+    :func:`pad_params_for_mesh`'s output, as ``fit_scene(mesh=...)`` holds
+    them): the saved whole state is padded the same way and each rank
+    restores its own rows. Densify state is single-device only."""
     path = os.path.abspath(path)
     state = torch.load(os.path.join(path, _CHECKPOINT_FILE), map_location="cpu",
                        weights_only=True)
@@ -979,6 +1206,13 @@ def load_checkpoint(path: str, params: SceneParams, opt_state: Optional[AdamStat
     if missing:
         raise ValueError(f"checkpoint {path} has no {sorted(missing)} "
                          f"(on disk: {sorted(state)})")
+    if mesh is not None:
+        if densify_state is not None:
+            raise ValueError("load_checkpoint(mesh=...): densify state is single-device only")
+        state["params"] = _mesh_rows(state["params"], mesh, params=True)
+        if opt_state is not None:
+            for k in ("mu", "nu"):
+                state["opt_state"][k] = _mesh_rows(state["opt_state"][k], mesh, params=False)
     params = _restore(path, state["params"], params)
     if opt_state is not None:
         saved = state["opt_state"]

@@ -216,11 +216,24 @@ def test_accumulate_densify_stats_counts_projected_visibility():
         np.testing.assert_array_equal(p.grad_accum.numpy(), [0.0, 1.0, 0.5])
 
 
-def test_fit_scene_mesh_raises():
+@pytest.mark.parametrize("case,match", [
+    ("timed", "timed views are single-chip only"),
+    ("densify_every", "densify_every requires mesh=None"),
+    ("sh_warmup_every", "sh_warmup_every requires mesh=None"),
+    ("loss_fn", "strip-masked loss built into make_multichip_train_step"),
+])
+def test_fit_scene_mesh_rejects_single_device_options(case, match):
+    """fit_scene(mesh=...) refuses what stays single-device, with the JAX
+    package's messages, before it touches the mesh (the multi-device
+    fit itself: tests/test_torch_multichip_train.py)."""
     _, (pviews, pcfg) = fit_views(poses=1)
     start = to_torch_params(np_tree(start_params(kill=0)), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gt.fit_scene(pviews, pcfg, start, steps=1, mesh=object())
+    kw = {"densify_every": dict(densify_every=4), "sh_warmup_every": dict(sh_warmup_every=2),
+          "loss_fn": dict(loss_fn=gt.l1_dssim_loss)}.get(case, {})
+    if case == "timed":
+        pviews = [v + (0.5,) for v in pviews]
+    with pytest.raises(ValueError, match=match):
+        gt.fit_scene(pviews, pcfg, start, steps=1, mesh=object(), **kw)
 
 
 def test_fit_scene_launches_the_train_kernels_on_the_card():
