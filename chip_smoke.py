@@ -9,7 +9,9 @@ Phases, each ending with ``torch.cuda.synchronize()`` and a line giving
 its elapsed seconds:
 
 1. device           — the card's name and power limit (nvidia-smi);
-2. build            — nvcc build of every kernel (seconds, registers);
+2. build            — nvcc build of every kernel (seconds, registers) and
+                      g++ build of the native PLY and points3D.bin readers
+                      into build/torch_native/;
 3. scene-3m         — the bench.py headline scene (3M splats, Morton order);
 4. kernel-vs-plain  — each kernel against its plain PyTorch version on the
                       card: the compositor, without and with its saturation
@@ -68,7 +70,21 @@ its elapsed seconds:
                       frame; then a one-rank NCCL group, bit-equal to
                       render_frame. Per rank: synchronized frame ms, each
                       exchange's bytes and ms alone, instances, launches;
-9. train-kernel-vs-plain
+9. native-io       — data/trained_500k.ply and data/trained_100k.ply loaded
+                      onto the card through the native reader (the
+                      default) and the NumPy reader, in turns, each load
+                      timed: positions, SH and quaternions bit-equal,
+                      opacity and scales within 4 ulp (count and largest
+                      printed); one 1920×1080 frame of the native
+                      trained_500k and the bench_3m frame, three timed
+                      frames of each (the compositor's launches counted over
+                      all eight), render.area_histogram equal to each
+                      frame's stats.area_hist and render.emission_total to
+                      its num_instances, the probes' ms beside the frame's;
+                      an ascii and a truncated PLY raise ValueError, and a
+                      header the C++ reader would write outside its buffers
+                      for (scale_3) loads through the NumPy reader;
+10. train-kernel-vs-plain
                     — both training kernels against their plain versions
                       on every tile of the first training step's frame
                       below and of a heavy-overdraw case (16k large splats
@@ -79,7 +95,7 @@ its elapsed seconds:
                       the last tile exactly 0; kernel, plain and bound ms,
                       each pass's device ms (torch.profiler) and the
                       kernel launches of one call;
-10. train-500k       — the training main path: ``make_train_step`` with
+11. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
                       config), 30 steps over 4 orbit views whose targets
@@ -88,7 +104,7 @@ its elapsed seconds:
                       gradient, one launch of each kernel per step; step
                       ms, CUDA-event stage ms, PSNR before and after, and
                       a torch.profiler pass over 3 steps;
-11. fit-500k        — the fit main path: ``fit_scene`` on the same file,
+12. fit-500k        — the fit main path: ``fit_scene`` on the same file,
                       views, start, loss and optimizer, 60 steps with
                       densify episodes at 20 and 40 and checkpoints at 30
                       and 60, then ``evaluate`` on the views: loss finite
@@ -105,14 +121,14 @@ its elapsed seconds:
                       each, in turns), one ``densify_step`` episode's
                       CUDA-event ms (checked free of host waits) and
                       ``evaluate`` ms per view;
-12. fit-app         — apps/fit on a poses.json dataset of 8 views of the
+13. fit-app         — apps/fit on a poses.json dataset of 8 views of the
                       file at 640×480 (.npy targets), refining the PLY
                       for 40 steps with densification, held-out views and
                       checkpoints (exit 0, PSNR lines, a PLY of the same
                       N), again resumed from step 20; apps/train_test with
                       its defaults (exit 0); the dataset is kept for
                       viewer-2m;
-13. multichip-train-500k
+14. multichip-train-500k
                     — make_multichip_train_step on data/trained_500k.ply at
                       its fitting config (640×480, 15 tile rows: balanced
                       strips) with 2 ranks sharing the card: the first
@@ -125,7 +141,7 @@ its elapsed seconds:
                       within 1e-3), rank 0's last checkpoint read by a
                       single-device load_checkpoint equal to every rank's
                       returned params;
-14. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
+15. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
                       port's load_scene onto the card (load timed); 10
                       frames of an orbit at 1920×1080 through
                       render_frame (median frame ms, instances, the
@@ -136,11 +152,12 @@ its elapsed seconds:
                       and .splat (save and load timed), each reload's
                       first frame scored against the original's: q16
                       > 55 dB, .splat > 35 dB at SH degree 0, q8 printed;
-15. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
+16. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
                       from 12 orbit views of data/trained_surface_100k.gsz
                       at 1280×720 and a points3D cloud of 20,000 of its
-                      positions and DC colours (its read timed, and a
-                      10⁶-point file's); apps/fit with SfM init (the
+                      positions and DC colours (read by the native reader
+                      and by the Python loop, and so a 10⁶-point file:
+                      arrays equal, each read timed); apps/fit with SfM init (the
                       default, checked by its "SfM init:" line), 100,000
                       splats, 60 steps, densify every 20, every 4th view
                       held out; apps/eval of the fitted PLY through the
@@ -148,14 +165,14 @@ its elapsed seconds:
                       overflow_views 0); apps/edit to a pruned .gsz
                       (--min-opacity 0.005) and apps/eval of it; each
                       app's wall time and the kernels' launches in them;
-16. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
+17. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
                       views) and transforms_test.json (4) with RGBA PNGs
                       of the same scene at 800×800 (alpha from the
                       render's alpha row, camera_angle_x); apps/fit
                       refining the scene (--init, --background white, 40
                       steps) and apps/eval of the test split over white
                       (exit 0, finite PSNR);
-17. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
+18. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
                       with a prewarm (its thread ends without an error)
                       and data/trained_2m.gsz loaded by load_gaussians
                       at formats-2m's pose; its frame bit-equal to
@@ -184,10 +201,10 @@ its elapsed seconds:
                       (step 20 of 20, a PNG of the dataset's size);
                       the compositor's launches equal to the frames,
                       the train kernels' calls counted;
-18. train-bench-shape
+19. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-19. gemm            — the GEMM harness: the port's apps/matrix_test at
+20. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -200,7 +217,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-20. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+21. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -208,7 +225,7 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-21. sort-harness    — the port's apps/onesweep and apps/radix_test with
+22. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
@@ -392,6 +409,10 @@ COLMAP_POINTS = 20_000
 COLMAP_FIT_N = 100_000
 COLMAP_FIT_STEPS = 60
 POINTS_READ_CAPTURE = 1_000_000  # a capture-scale points3D.bin, read and timed
+#: The C++ PLY reader's f32 sigmoid and exp against NumPy's, in ulp
+#: (measured on both repo PLYs: 4 in opacity, 2 in scales).
+NATIVE_MAX_ULP = 4
+NATIVE_H, NATIVE_W = 1080, 1920  # native-io's trained_500k frame
 BLENDER_SIZE = 800  # the published NeRF-synthetic frame
 BLENDER_TRAIN, BLENDER_TEST = 12, 4
 BLENDER_FIT_STEPS = 40
@@ -2109,6 +2130,135 @@ def db(p):
     return math.inf if p == "inf" else p
 
 
+def ulp_diff(torch, a, b):
+    """(count, largest) of the ulp distances between two f32 tensors."""
+    d = (a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def phase_native_io(torch, gt, big, card):
+    """The native readers on the card's host: data/trained_500k.ply and
+    data/trained_100k.ply loaded onto the card through the C++ reader (the
+    default) and through the NumPy reader, in turns (native, NumPy, NumPy,
+    native), each load timed on the host clock; positions, SH and
+    quaternions bit-equal between the two, opacity and scales within
+    NATIVE_MAX_ULP. One 1920×1080 frame of the natively loaded trained_500k
+    and the bench_3m frame; the emission probes (render.area_histogram,
+    render.emission_total) equal to each frame's stats, their ms beside the
+    frame's (three timed frames of each; the compositor's launches counted
+    over all eight frames). An ascii and
+    a truncated PLY raise ValueError."""
+    import numpy as np
+
+    from gaussianrenderer_tpu_torch import render
+
+    loads, native = {}, {}
+    for name in ("trained_500k", "trained_100k"):
+        path = os.path.join(REPO, "data", f"{name}.ply")
+        ms = {True: [], False: []}
+        for use_native in (True, False, False, True):
+            scene, t = host_ms(torch, lambda: gt.load_ply(
+                path, max_sh_degree=None, use_native=use_native, device=DEVICE))
+            ms[use_native].append(t)
+            if use_native:
+                native[name] = scene
+            else:
+                numpy_scene = scene
+        row = {"gaussians": native[name].num_gaussians, "sh_degree": native[name].sh_degree,
+               "native_ms": ms[True], "numpy_ms": ms[False]}
+        for f in ("positions", "sh", "quats"):
+            a, b = getattr(native[name], f), getattr(numpy_scene, f)
+            check(a.device.type == DEVICE and torch.equal(a.view(torch.int32),
+                                                          b.view(torch.int32)),
+                  f"native-io: {name} {f} differs between the native and the NumPy load")
+        for f in ("opacity", "scales"):
+            count, largest = ulp_diff(torch, getattr(native[name], f), getattr(numpy_scene, f))
+            row[f"{f}_ulp_differing"], row[f"{f}_ulp_max"] = count, largest
+            check(largest <= NATIVE_MAX_ULP, f"native-io: {name} {f} {largest} ulp apart")
+        loads[name] = row
+        del numpy_scene
+
+    scene500 = native["trained_500k"]
+    cfg500 = gt.RenderConfig(height=NATIVE_H, width=NATIVE_W, sh_degree=scene500.sh_degree)
+    frames = {"trained_500k": (scene500, look_camera(gt, (3.9, 1.7, 3.9), NATIVE_W / NATIVE_H),
+                               cfg500),
+              "bench_3m": big}
+    timed = 3
+    gt.composite_tiles_packed.launches = 0
+    rendered = {}
+    for label, (scene, cam, cfg) in frames.items():
+        camp = cam.params(cfg.k_sigma, device=DEVICE)
+        (fb, stats), _ = host_ms(torch, lambda: gt.render_frame(scene, camp, cfg))
+        rendered[label] = (camp, fb, stats)
+    probes = {}
+    for label, (scene, cam, cfg) in frames.items():
+        camp, fb, stats = rendered[label]
+        check(fb.shape == (3, cfg.height, cfg.width) and bool(torch.isfinite(fb).all())
+              and 0.0 < float(fb.mean()) < 1.0, f"native-io: {label} frame")
+        hist = render.area_histogram(scene, camp, cfg)
+        total = render.emission_total(scene, camp, cfg)
+        check(hist.dtype == np.int64
+              and np.array_equal(hist, stats.area_hist.cpu().numpy()),
+              f"native-io: {label} area_histogram {hist.tolist()} != stats.area_hist")
+        check(total == int(stats.num_instances),
+              f"native-io: {label} emission_total {total} != {int(stats.num_instances)}")
+        t = {"frame": [], "area_histogram": [], "emission_total": []}
+        for _ in range(timed):
+            for key, fn in (("frame", lambda: gt.render_frame(scene, camp, cfg)),
+                            ("area_histogram", lambda: render.area_histogram(scene, camp, cfg)),
+                            ("emission_total", lambda: render.emission_total(scene, camp, cfg))):
+                t[key].append(host_ms(torch, fn)[1])
+        probes[label] = {"num_instances": total, "num_culled": int(stats.num_culled),
+                         "area_hist": hist.tolist(),
+                         **{f"{k}_ms_median": statistics.median(v) for k, v in t.items()},
+                         **{f"{k}_ms_all": v for k, v in t.items()}}
+    # Every frame of the phase, the timed ones included; the probes launch
+    # no compositor.
+    launches = gt.composite_tiles_packed.launches
+    check(launches == len(frames) * (1 + timed),
+          f"native-io: {launches} compositor launches")
+    check(probes["trained_500k"]["num_instances"] == REF_COUNTS["trained_500k"]["num_instances"],
+          f"native-io: trained_500k instances {probes['trained_500k']['num_instances']}")
+
+    d = fit_dir("chip_smoke_native")
+    bad = {"ascii": os.path.join(d, "ascii.ply"), "truncated": os.path.join(d, "trunc.ply")}
+    with open(bad["ascii"], "w") as f:
+        f.write("ply\nformat ascii 1.0\nelement vertex 1\nproperty float x\n"
+                "property float y\nproperty float z\nend_header\n0 0 0\n")
+    with open(os.path.join(REPO, "data", "trained_100k.ply"), "rb") as f:
+        data = f.read()
+    with open(bad["truncated"], "wb") as f:
+        f.write(data[: len(data) - 1000])
+    raised = {}
+    for kind, path in bad.items():
+        try:
+            gt.load_ply(path, device=DEVICE)
+            raised[kind] = None
+        except ValueError as e:
+            raised[kind] = str(e)
+        check(raised[kind] is not None, f"native-io: the {kind} PLY loaded")
+    # An index the C++ reader would write past its buffer with: the NumPy
+    # reader loads the file instead.
+    names = (["x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2", "opacity"]
+             + [f"scale_{i}" for i in range(4)] + [f"rot_{i}" for i in range(4)])
+    unsafe = os.path.join(d, "scale_3.ply")
+    with open(unsafe, "wb") as f:
+        f.write(("\n".join(["ply", "format binary_little_endian 1.0", "element vertex 64"]
+                           + [f"property float {n}" for n in names] + ["end_header"])
+                 + "\n").encode())
+        f.write(np.random.default_rng(15).normal(0, 1, (64, len(names)))
+                .astype("<f4").tobytes())
+    a, b = (gt.load_ply(unsafe, use_native=flag, device=DEVICE) for flag in (True, False))
+    check(all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+              ("positions", "sh", "opacity", "scales", "quats")),
+          "native-io: the scale_3 PLY did not load as the NumPy reader loads it")
+    shutil.rmtree(d)
+    res = {"native_io": loads, "probes": probes, "kernel_launches": launches,
+           "bad_ply_errors": raised, "unsafe_header_loaded_by_numpy": True, "card": card}
+    out(res)
+    return res
+
+
 def phase_formats_2m(torch, gt, card):
     """data/trained_2m.gsz (the repo's largest scene, 1,999,994 splats)
     loaded by load_scene onto the card; 10 frames of an orbit at 1920×1080
@@ -2243,7 +2393,9 @@ def phase_colmap_fit(torch, gt, card):
     of the fitted PLY through the train and the packed path, apps/edit to
     a pruned .gsz and apps/eval of that. Each app's wall time, the
     points3D.bin read time (and a capture-scale 10⁶-point file's), and the
-    kernels' launches in the apps (counts set to 0 just before)."""
+    kernels' launches in the apps (counts set to 0 just before). Both
+    points3D.bin files are read by the native reader and by the Python
+    loop: arrays equal, each read timed."""
     import numpy as np
 
     from gaussianrenderer_tpu_torch.apps import edit as edit_app
@@ -2266,18 +2418,26 @@ def phase_colmap_fit(torch, gt, card):
     rgb = (0.5 + SH_C0 * scene.sh[idx.to(DEVICE), :3]).clamp(0.0, 1.0).cpu().numpy()
     colmap.save_colmap_workspace(data, cams, frames, points_xyz=xyz, points_rgb=rgb)
     del frames
-    t0 = time.perf_counter()
-    pts = colmap.read_points3d_bin(os.path.join(data, "sparse", "0", "points3D.bin"))
-    points_read_s = time.perf_counter() - t0
-    check(pts[0].shape == (COLMAP_POINTS, 3), f"colmap-fit: points {pts[0].shape}")
+    # Each file read by the native reader (the default) and by the Python
+    # loop (the old fields' meaning), in that order; the arrays equal.
+    read_s = {}
     big = os.path.join(root, "points3D_capture.bin")
     colmap.write_points3d_bin(big, rng.normal(0, 3, (POINTS_READ_CAPTURE, 3)),
                               rng.integers(0, 256, (POINTS_READ_CAPTURE, 3), dtype=np.uint8))
-    t0 = time.perf_counter()
-    big_pts = colmap.read_points3d_bin(big)
-    points_read_capture_s = time.perf_counter() - t0
-    check(big_pts[0].shape == (POINTS_READ_CAPTURE, 3), "colmap-fit: capture-scale points")
-    del big_pts
+    for label, path, n in (("", os.path.join(data, "sparse", "0", "points3D.bin"),
+                            COLMAP_POINTS),
+                           ("_capture", big, POINTS_READ_CAPTURE)):
+        got = {}
+        for use_native in (True, False):
+            t0 = time.perf_counter()
+            got[use_native] = colmap.read_points3d_bin(path, use_native=use_native)
+            read_s[f"points3d_read{label}{'_native' if use_native else ''}_s"] = (
+                time.perf_counter() - t0)
+        check(got[True][0].shape == (n, 3), f"colmap-fit: points {got[True][0].shape}")
+        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(got[True], got[False])),
+              f"colmap-fit: native and loop points3D reads of {n} points differ")
+        del got
     os.remove(big)
 
     ply, gsz = os.path.join(root, "fitted.ply"), os.path.join(root, "out.gsz")
@@ -2331,8 +2491,7 @@ def phase_colmap_fit(torch, gt, card):
         "edited_psnr_change_db": rep_gsz["psnr"] - rep_train["psnr"],
         "app_s": {"fit": fit_s, "eval_train": eval_train_s, "eval_packed": eval_packed_s,
                   "edit": edit_s, "eval_gsz": eval_gsz_s},
-        "points3d_read_s": points_read_s,
-        "points3d_read_capture_s": points_read_capture_s,
+        **read_s,
         "points3d_capture_points": POINTS_READ_CAPTURE,
         "kernel_launches": launches,
         "card": card,
@@ -3525,6 +3684,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import gaussianrenderer_tpu_torch as gt
     from gaussianrenderer_tpu_torch import _build
+    from gaussianrenderer_tpu_torch.native import colmap_native, ply_native
     from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import (
         composite_tiles_packed_plain,
     )
@@ -3548,6 +3708,14 @@ def main() -> int:
              "max_registers_per_thread": max(regs) if regs else None})
         for name in _build.SOURCES:
             _build.load(name)
+        # The host C++ readers (g++), before any phase loads a PLY.
+        t0 = time.perf_counter()
+        ply_native.library()
+        colmap_native.library()
+        out({"native_build_seconds": time.perf_counter() - t0,
+             "cxx": _build.find_cxx(),
+             "native_libraries": [os.path.relpath(_build.NATIVE.library_path(n), REPO)
+                                  for n in ("ply_loader", "colmap_loader")]})
     # Full-fp32 matrix products (the default, stated): the plain versions'
     # colour sums must not drop to TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3592,6 +3760,9 @@ def main() -> int:
 
     with Phase("multichip-3m", torch):
         mc3m = phase_multichip_3m(torch, gt, big, card)
+
+    with Phase("native-io", torch):
+        native_res = phase_native_io(torch, gt, big, card)
     del big
     torch.cuda.empty_cache()
 
@@ -3664,9 +3835,10 @@ def main() -> int:
         "launches": (res3m["kernel_launches"] + formats_res["kernel_launches"]
                      + colmap_res["kernel_launches"]["tile_render2"]
                      + viewer_res["kernel_launches"]["tile_render2"]
-                     + mc3m["kernel_launches"]),
+                     + mc3m["kernel_launches"] + native_res["kernel_launches"]),
         "launches_by_phase": {"full-3m": res3m["kernel_launches"],
                               "multichip-3m (all ranks)": mc3m["kernel_launches"],
+                              "native-io": native_res["kernel_launches"],
                               "formats-2m": formats_res["kernel_launches"],
                               "colmap-fit (apps/eval --path packed)":
                                   colmap_res["kernel_launches"]["tile_render2"],

@@ -437,6 +437,101 @@ def _eff_hist(valid: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
     return torch.bincount(bucket, minlength=len(AREA_BUCKETS) + 1)
 
 
+class _Lanes(NamedTuple):
+    """One lane per (valid splat, rect tile), splat-major, with the exact
+    dead-tile test of each."""
+
+    area: torch.Tensor  # (N,) rect tiles of each valid splat, 0 otherwise
+    splat: torch.Tensor  # (L,) the lane's splat
+    tx: torch.Tensor  # (L,) tile column
+    ty: torch.Tensor  # (L,) tile row
+    qx: torch.Tensor  # (L,) 13.3 (or 1-px COARSE) center carrier, x
+    qy: torch.Tensor  # (L,) and y
+    co: torch.Tensor  # (L,) bool COARSE
+    ab: torch.Tensor  # (L, 4) pixel AABB
+    x0i: torch.Tensor  # (L,) the tile's pixel origin, x
+    y0i: torch.Tensor  # (L,) and y
+    dead: torch.Tensor  # (L,) bool — no pixel of the tile reaches ALPHA_EPS
+
+
+def _rect_lanes(pk: _Prepack, *, tile_w: int, tile_h: int) -> _Lanes:
+    """Count → exclusive scan → scatter over each valid splat's rect, then
+    the exact dead-tile test on the quantized center, conic and opacity: a
+    dead tile has no pixel with alpha ≥ ALPHA_EPS, so dropping it changes
+    no output."""
+    f32 = torch.float32
+    device = pk.rect_w.device
+    area = torch.where(pk.valid, pk.rect_w * pk.rect_h, 0)
+    total = int(area.sum())
+    splat = torch.repeat_interleave(
+        torch.arange(area.shape[0], device=device), area, output_size=total
+    )
+    first = torch.cumsum(area, 0) - area
+    pos = torch.arange(total, device=device) - first[splat]
+    w = pk.rect_w[splat]
+    tx = pk.tmin_x[splat] + pos % w
+    ty = pk.tmin_y[splat] + pos // w
+
+    qx = pk.cq[splat] >> 16
+    qy = pk.cq[splat] & 0xFFFF
+    co = pk.coarse[splat]
+    cx, cy = _cq_decode(qx, qy, co)
+    ab = pk.aabb[splat]
+    x0i = tx * tile_w
+    y0i = ty * tile_h
+    dead = _tile_dead(
+        tuple(p[splat] for p in pk.prune), cx, cy,
+        x0i.to(f32), y0i.to(f32),
+        ab[:, 0].to(f32), ab[:, 1].to(f32), ab[:, 2].to(f32), ab[:, 3].to(f32),
+        tile_w, tile_h,
+    )
+    return _Lanes(area, splat, tx, ty, qx, qy, co, ab, x0i, y0i, dead)
+
+
+def _lane_hist(valid, area, splat, live, *, tiles_x: int, tile_w: int):
+    """The effective-lane histogram: live tiles for rects ≤ ENUM_AREA when
+    the frame is narrow enough for the JAX package's live-tile scan, rect
+    area otherwise, over the splats that emit at least one instance."""
+    live_cnt = torch.zeros_like(area).index_add_(0, splat, live.to(torch.int64))
+    if tiles_x * tile_w <= 4095:
+        scan = valid & (area <= ENUM_AREA)
+        valid_h = valid & (~scan | (live_cnt > 0))
+        eff = torch.where(scan, live_cnt, area)
+    else:
+        valid_h, eff = valid, area
+    return _eff_hist(valid_h, eff)
+
+
+def _emission_probe(
+    proj: ProjectedGaussians, *, tiles_x: int, tiles_y: int, tile_w: int,
+    tile_h: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(area_hist, total)`` of one frame without sorting or packing:
+    the histogram ``build_packed_instances`` reports and the number of
+    live (splat, tile) instances it emits (its ``total_instances``), from
+    the same prepack and lanes. ``tiles_y`` is the grid's, for the JAX
+    signature; the rect tiles already lie inside it."""
+    del tiles_y
+    pk = _nscale_prepack(proj, tile_w=tile_w, tile_h=tile_h)
+    lanes = _rect_lanes(pk, tile_w=tile_w, tile_h=tile_h)
+    live = ~lanes.dead
+    hist = _lane_hist(pk.valid, lanes.area, lanes.splat, live,
+                      tiles_x=tiles_x, tile_w=tile_w)
+    return hist, live.sum()
+
+
+def effective_hist(
+    proj: ProjectedGaussians, *, tiles_x: int, tiles_y: int, tile_w: int,
+    tile_h: int,
+) -> torch.Tensor:
+    """The effective-lane histogram of ``stats.area_hist`` from projection
+    outputs alone (prepack, lanes and the dead-tile test; no sort, no
+    packing): the same code ``build_packed_instances`` runs, so the two
+    are equal for the same frame."""
+    return _emission_probe(proj, tiles_x=tiles_x, tiles_y=tiles_y,
+                          tile_w=tile_w, tile_h=tile_h)[0]
+
+
 def build_packed_instances(
     proj: ProjectedGaussians,
     *,
@@ -479,33 +574,9 @@ def build_packed_instances(
     dmax = float((1 << depth_bits) - 1)
     depth_q = torch.where(valid, depth01 * dmax, 0.0).to(torch.int64)
 
-    # ---- count → exclusive scan → scatter over each valid splat's rect.
-    area = torch.where(valid, pk.rect_w * pk.rect_h, 0)
-    total = int(area.sum())
-    splat = torch.repeat_interleave(
-        torch.arange(area.shape[0], device=device), area, output_size=total
-    )
-    first = torch.cumsum(area, 0) - area
-    pos = torch.arange(total, device=device) - first[splat]
-    w = pk.rect_w[splat]
-    tx = pk.tmin_x[splat] + pos % w
-    ty = pk.tmin_y[splat] + pos // w
-
-    # Exact dead-tile prune on the quantized center/conic/opacity: a dead
-    # tile has no pixel with alpha ≥ ALPHA_EPS, so dropping it changes no
-    # output.
-    qx = pk.cq[splat] >> 16
-    qy = pk.cq[splat] & 0xFFFF
-    co = pk.coarse[splat]
-    cx, cy = _cq_decode(qx, qy, co)
-    ab = pk.aabb[splat]
-    x0i = tx * tile_w
-    y0i = ty * tile_h
-    dead = _tile_dead(
-        tuple(p[splat] for p in pk.prune), cx, cy,
-        x0i.to(f32), y0i.to(f32),
-        ab[:, 0].to(f32), ab[:, 1].to(f32), ab[:, 2].to(f32), ab[:, 3].to(f32),
-        tile_w, tile_h,
+    # Unpacked so that the full-length lanes are freed once compacted.
+    area, splat, tx, ty, qx, qy, co, ab, x0i, y0i, dead = _rect_lanes(
+        pk, tile_w=tile_w, tile_h=tile_h
     )
     if sat_cut_q is not None:
         # Per-position saturation cull, folded into the dead mask before
@@ -517,18 +588,7 @@ def build_packed_instances(
                            r=max(-(-sat_cut_q.shape[0] // 128), 1), q=128)
         dead = dead | (depth_q[splat].to(f32) > cut)
     live = ~dead
-
-    # Effective-lane histogram (live tiles for rects ≤ ENUM_AREA when the
-    # frame is narrow enough for the JAX package's live-tile scan, rect
-    # area otherwise), over the splats that emit at least one instance.
-    live_cnt = torch.zeros_like(area).index_add_(0, splat, live.to(torch.int64))
-    if tiles_x * tile_w <= 4095:
-        scan = valid & (area <= ENUM_AREA)
-        valid_h = valid & (~scan | (live_cnt > 0))
-        eff = torch.where(scan, live_cnt, area)
-    else:
-        valid_h, eff = valid, area
-    area_hist = _eff_hist(valid_h, eff)
+    area_hist = _lane_hist(valid, area, splat, live, tiles_x=tiles_x, tile_w=tile_w)
 
     keep = torch.nonzero(live).squeeze(1)
     if keep.numel() >= 2**31:

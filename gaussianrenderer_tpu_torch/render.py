@@ -52,7 +52,7 @@ from gaussianrenderer_tpu_torch.ops.compositing import (
     gather_sorted_features_seg,
 )
 from gaussianrenderer_tpu_torch.ops.cuda.tile_render2 import composite_tiles_packed
-from gaussianrenderer_tpu_torch.ops.instances import build_packed_instances
+from gaussianrenderer_tpu_torch.ops.instances import _emission_probe, build_packed_instances
 from gaussianrenderer_tpu_torch.ops.projection import (
     preprocess_gaussians,
     slice_spacetime,
@@ -335,6 +335,46 @@ def make_renderer(
 
     render.current_cfg = lambda: state["cfg"]
     return render
+
+
+def area_histogram(scene: GaussianScene, cam: CameraParams, cfg: RenderConfig) -> np.ndarray:
+    """The effective-lane histogram over ``AREA_BUCKETS`` (int64) of one
+    pose, from projection and prepack alone: nothing sorts and nothing
+    composites. Equal to ``stats.area_hist`` of ``render_frame`` with
+    ``compositor="packed"`` and the cull off (ops/instances.effective_hist
+    runs the code that fills it)."""
+    return _hist_probe(scene, cam, cfg)[0].cpu().numpy().astype(np.int64)
+
+
+def emission_total(scene: GaussianScene, cam: CameraParams, cfg: RenderConfig) -> int:
+    """The exact number of (splat, tile) instances one pose emits, from
+    the same probe as :func:`area_histogram`: ``int(stats.num_instances)``
+    of the packed ``render_frame`` with the cull off."""
+    return int(_hist_probe(scene, cam, cfg)[1])
+
+
+def _hist_probe(scene, cam, cfg):
+    """Projection with ``cfg``'s arguments, then the emission probe, on
+    the scene's device. The scatter reads its lane count from the card
+    (as emission does); the callers read the result once."""
+    proj = preprocess_gaussians(
+        scene,
+        cam,
+        width=cfg.width,
+        height=cfg.height,
+        tile_w=cfg.tile_w,
+        tile_h=cfg.tile_h,
+        tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y,
+        sh_degree=cfg.sh_degree,
+        quantize_centers=cfg.quantize_centers,
+        ewa_dilation=cfg.ewa_dilation,
+        ewa_compensate=cfg.ewa_compensate,
+    )
+    return _emission_probe(
+        proj, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
+        tile_h=cfg.tile_h,
+    )
 
 
 def _finish_fb(fb: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:

@@ -9,9 +9,10 @@ OpenCV convention) and ``init_from_points`` (SfM-point-seeded
 ``SceneParams``: DC colour from RGB, isotropic scale from the mean
 distance to the 3 nearest neighbours, identity rotations).
 
-The JAX package reads ``points3D.bin`` through a C++ loader of its own
-(``native/colmap_native.py``); the port has no counterpart and always
-runs the Python loop below, which gives the same arrays.
+``read_points3d_bin`` reads ``points3D.bin`` through the C++ reader
+(``native/colmap_native.py``) by default, as the JAX package does, and
+through the Python loop below when asked or when the C++ reader refuses
+the file; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -118,11 +119,19 @@ def read_points3d_bin(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (xyz (N, 3) f64, rgb (N, 3) u8, error (N,) f64).
 
-    ``use_native`` is accepted for the JAX package's call signature and
-    changes nothing: the port has no native reader, so this Python loop
-    always runs (it gives the same arrays as the JAX package's C++
-    reader)."""
-    del use_native
+    ``use_native`` reads in one pass through the C++ reader
+    (``native/colmap_native.py``); a capture's cloud reaches 10⁶ points
+    and more, where this Python loop takes seconds. A file the C++ reader
+    refuses goes to the loop, which reads it or raises ``ValueError``
+    ("truncated COLMAP binary file"); a C++ reader that cannot be built
+    raises."""
+    if use_native:
+        from gaussianrenderer_tpu_torch.native import colmap_native
+
+        try:
+            return colmap_native.load_points(path)
+        except (ValueError, MemoryError):
+            pass  # refused, or a count too large to allocate: the loop reports
     xyz: List = []
     rgb: List = []
     err: List = []

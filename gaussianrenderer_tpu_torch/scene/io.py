@@ -1,7 +1,8 @@
 """Scene loading and the seeded scene generators (PyTorch port).
 
-Counterpart of ``gaussianrenderer_tpu.scene.io``: the vectorized NumPy
-PLY reader (binary little-endian only, activations baked in at load:
+Counterpart of ``gaussianrenderer_tpu.scene.io``: ``load_ply`` through
+the C++ reader (``native/ply_native.py``) or the vectorized NumPy reader
+(binary little-endian only, activations baked in at load:
 ``opacity = sigmoid(raw)``, ``scale = exp(raw)``), ``save_ply``, whose
 files are byte-equal to the JAX package's for the same scene,
 ``load_scene`` (PLY, ``.gsz`` or ``.splat`` by extension), and
@@ -101,6 +102,7 @@ def _parse_header(f) -> Tuple[str, int, List[Tuple[str, str]], int]:
 def load_ply(
     path: str,
     max_sh_degree: Optional[int] = 2,
+    use_native: bool = True,
     device="cuda",
 ) -> GaussianScene:
     """Load a 3DGS PLY into a ``GaussianScene`` on ``device``.
@@ -108,15 +110,47 @@ def load_ply(
     ``max_sh_degree`` 2 keeps 24 rest coefficients; 3 keeps 45; ``None``
     keeps the file's own stored degree (the highest complete SH band its
     ``f_rest`` properties cover, capped at 3).
+
+    ``use_native`` reads through the C++ reader (``native/ply_native.py``),
+    as the JAX package does by default; its f32 ``exp`` rounds opacities
+    and scales a few ulp apart from the NumPy reader's. A spacetime (4D)
+    file, an unreadable header or a file the C++ reader refuses (ascii, a
+    truncated body) takes the NumPy reader, which loads it or raises
+    ``ValueError``. So does a header the C++ reader would not read within
+    its buffers (an index such as ``scale_3`` or ``rot_-1``) or would leave
+    a field of unset (no ``x``/``y``/``z``, ``opacity`` or ``scale_*``):
+    ``ply_native.check_header``. A C++ reader that cannot be built raises.
     """
-    if max_sh_degree is None:
+    # The C++ reader does not know the spacetime properties: sniff the
+    # header first and send 4D files to the NumPy reader.
+    has_time = False
+    try:
         with open(path, "rb") as f:
             _, _, props, _ = _parse_header(f)
-        n_rest = sum(1 for _, n in props if n.startswith("f_rest_"))
-        max_sh_degree = next(
-            d for d in (3, 2, 1, 0) if 3 * ((d + 1) ** 2 - 1) <= n_rest
-        )
-    arrays, time_params = _load_ply_numpy(path, max_sh_degree)
+        pnames = {name for _, name in props}
+        has_time = bool(pnames & {"t_center", "trbf_center"})
+        if max_sh_degree is None:
+            n_rest = sum(1 for n in pnames if n.startswith("f_rest_"))
+            max_sh_degree = next(
+                d for d in (3, 2, 1, 0) if 3 * ((d + 1) ** 2 - 1) <= n_rest
+            )
+    except (OSError, ValueError, IndexError):
+        if max_sh_degree is None:
+            max_sh_degree = 2  # an unreadable header: the NumPy reader reports
+
+    arrays = time_params = None
+    if use_native and not has_time:
+        from gaussianrenderer_tpu_torch.native import ply_native
+
+        try:
+            arrays = ply_native.load(path, max_sh_degree)
+        except (ValueError, MemoryError):
+            # Refused, unsafe for the C++ reader, or a header count too
+            # large to allocate. A failed build raises RuntimeError, which
+            # goes on to the caller.
+            arrays = None
+    if arrays is None:
+        arrays, time_params = _load_ply_numpy(path, max_sh_degree)
     return _scene_from_numpy(arrays, time_params, device)
 
 

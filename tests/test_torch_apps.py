@@ -605,15 +605,9 @@ def test_edit_app_byte_equal_to_jax(ext, edit_inputs, tmp_path, monkeypatch, cap
     """The JAX app's and the port's output files are byte-equal and their
     lines equal, for a merge of three formats with a rotation, a
     translation, a scale, a negative crop in the space-separated form and
-    a prune. The JAX app reads PLY through its NumPy reader here (its
-    native reader rounds the opacity sigmoid 1 ulp apart, which the PLY
-    round trip would carry into the bytes)."""
-    import functools
-
+    a prune. Both apps read PLY through their default, native, readers."""
     from gaussianrenderer_tpu.apps import edit as jax_edit
-    from gaussianrenderer_tpu.scene import io as jio
 
-    monkeypatch.setattr(jio, "load_ply", functools.partial(jio.load_ply, use_native=False))
     ops = ["--rotate", "0,1,0,90", "--translate", "-1,0.5,0", "--scale", "1.5",
            "--crop", "-4,-9,-9,2,9,9", "--min-opacity", "0.2", "--max-scale", "0.15"]
     texts = []

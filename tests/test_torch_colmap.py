@@ -87,18 +87,19 @@ def test_readers_match_jax(workspace):
                       jcolmap.pose_to_c2w(ji[k].qvec, ji[k].tvec))):
             np.testing.assert_array_equal(a, b)
     path = os.path.join(sparse, "points3D.bin")
-    for a, b in zip(colmap.read_points3d_bin(path),
-                    jcolmap.read_points3d_bin(path, use_native=False)):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
+    for use_native in (True, False):
+        for a, b in zip(colmap.read_points3d_bin(path, use_native=use_native),
+                        jcolmap.read_points3d_bin(path, use_native=use_native)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
     for a, b in zip(colmap.load_colmap_points(workspace), jcolmap.load_colmap_points(workspace)):
         np.testing.assert_array_equal(a, b)
 
 
 def test_points_reader_variable_tracks_and_truncation(tmp_path):
-    """tests/test_colmap.py's variable-track file: the port's loop equals
-    the JAX package's (``use_native`` is inert), and a truncated file
-    raises."""
+    """tests/test_colmap.py's variable-track file: the port's native
+    reader equals the JAX package's native reader and its loop the JAX
+    package's loop, and a truncated file raises on both paths."""
     rng = np.random.default_rng(5)
     n = 200
     path = str(tmp_path / "points3D.bin")
@@ -114,15 +115,16 @@ def test_points_reader_variable_tracks_and_truncation(tmp_path):
             fh.write(struct.pack("<ii", 1, 0) * track)
     for use_native in (False, True):
         for a, b in zip(colmap.read_points3d_bin(path, use_native=use_native),
-                        jcolmap.read_points3d_bin(path, use_native=False)):
+                        jcolmap.read_points3d_bin(path, use_native=use_native)):
             np.testing.assert_array_equal(a, b)
     with open(path, "rb") as fh:
         data = fh.read()
     trunc = str(tmp_path / "trunc.bin")
     with open(trunc, "wb") as fh:
         fh.write(data[: len(data) - 9])
-    with pytest.raises(ValueError, match="truncated"):
-        colmap.read_points3d_bin(trunc)
+    for use_native in (True, False):
+        with pytest.raises(ValueError, match="truncated"):
+            colmap.read_points3d_bin(trunc, use_native=use_native)
 
 
 def test_rotations_match_jax():

@@ -135,7 +135,7 @@ def test_port_import_leaves_jax_unloaded():
         " eval, fit, matrix_test, onesweep, parser_test, radix_test, train_test,"
         " window_test)\n"
         "from gaussianrenderer_tpu_torch.scene import blender, colmap, compact\n"
-        "from gaussianrenderer_tpu_torch import parallel, viewer, web_viewer\n"
+        "from gaussianrenderer_tpu_torch import native, parallel, viewer, web_viewer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gaussianrenderer_tpu' or m.startswith('gaussianrenderer_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -111,13 +111,13 @@ def test_load_scene_matches_jax(tmp_path, ext):
     path = str(tmp_path / f"s{ext}")
     {".ply": jio.save_ply, ".gsz": jcompact.save_compact,
      ".splat": jcompact.save_splat}[ext](js, path)
-    # The JAX package's native PLY reader rounds the opacity sigmoid 1 ulp
-    # apart from its NumPy path, which the port copies
-    # (tests/test_torch_config_scene.py): hold PLY against the NumPy path.
-    extra = {"use_native": False} if ext == ".ply" else {}
-    for deg in (None, 0, 1, 2, 3):
-        assert_scenes_equal(gt.load_scene(path, max_sh_degree=deg, device="cpu"),
-                            jio.load_scene(path, max_sh_degree=deg, **extra))
+    # PLY: the default (native) reader against the JAX package's default,
+    # and the NumPy reader against its NumPy reader.
+    flags = ({}, {"use_native": False}) if ext == ".ply" else ({},)
+    for extra in flags:
+        for deg in (None, 0, 1, 2, 3):
+            assert_scenes_equal(gt.load_scene(path, max_sh_degree=deg, device="cpu", **extra),
+                                jio.load_scene(path, max_sh_degree=deg, **extra))
     if ext != ".ply":
         with pytest.raises(TypeError, match="unsupported"):
             gt.load_scene(path, use_native=True, device="cpu")

@@ -5,8 +5,9 @@ The port emits by count → scan → scatter with no tier ladder; the JAX
 package emits through a static tier ladder, here recalibrated from the
 frame until it does not overflow. Both must then produce the same (splat, tile) set: the culled
 count, the total instance count and every tile's instance count are
-compared bit-exact. Both packages load the same PLY with their own NumPy
-readers and project with their own code.
+compared bit-exact. Both packages load the same PLY with their default
+(native) readers, which give the same bits, and project with their own
+code.
 
 The tests use a small trained capture and a reduced-resolution view of
 ``data/trained_500k.ply``. The full 1920×1080 frame that ``chip_smoke.py``
@@ -47,7 +48,7 @@ def _jax_counts(path, cfg, jcam):
     ladder; where that overflows (splats wider than the widest tier), the
     ladder is recalibrated from the frame's area histogram and the frame
     emitted again, as ``make_renderer(auto_tier=True)`` does."""
-    scene = jax_load_ply(path, max_sh_degree=1, use_native=False)
+    scene = jax_load_ply(path, max_sh_degree=1)
     geo = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
                tile_h=cfg.tile_h)
 
