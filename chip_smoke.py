@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``gaussianrenderer_tpu_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-turns PARENT_CHECKOUT   (see train_turns)
 
 Needs one CUDA card and the CUDA toolkit (nvcc); builds the port's CUDA
 kernels from the sources in this checkout into build/torch_kernels/.
@@ -92,16 +93,24 @@ its elapsed seconds:
                       pixels): forward rgb and T within 1e-4, the
                       gradient per column within 1e-4 of the plain
                       version's largest, columns 9–15 and the lanes past
-                      the last tile exactly 0; kernel, plain and bound ms,
+                      the last tile exactly 0, two backward launches bit
+                      for bit equal; kernel, plain and bound ms,
                       each pass's device ms (torch.profiler) and the
-                      kernel launches of one call;
+                      kernel launches of one call; the segment sum (the
+                      gather's transpose) on that step's gradient rows:
+                      bit-equal to its plain version, to the CPU's
+                      index_add_ and across two launches, its ms beside
+                      the plain version's, one index_add_'s and its bound;
 11. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
                       config), 30 steps over 4 orbit views whose targets
                       are the file's own renders, from a seeded
                       perturbation: loss finite and falling, no NaN
-                      gradient, one launch of each kernel per step; step
+                      gradient, one launch of each kernel (and of the
+                      segment sum) per step; from one state, twice: every
+                      gradient, the NDC gradient, the loss and a step's
+                      params and Adam moments bit for bit equal; step
                       ms, CUDA-event stage ms, PSNR before and after, and
                       a torch.profiler pass over 3 steps;
 12. fit-500k        — the fit main path: ``fit_scene`` on the same file,
@@ -113,9 +122,9 @@ its elapsed seconds:
                       one forward and one backward train-kernel call a
                       step and one forward per evaluated view, PSNR above
                       the start's; the step-30 checkpoint restores the
-                      fit's params bit for bit, and a resume from it
-                      repeats the losses up to step 40 within 1e-3 and
-                      the episode steps with counts within 1e-3 of N;
+                      fit's params bit for bit; the fit run again, and a
+                      resume from step 30, repeat its losses, episodes
+                      and final params bit for bit;
                       the fit's wall ms per step, the densifying
                       step beside the plain step (10 synchronized steps
                       each, in turns), one ``densify_step`` episode's
@@ -138,7 +147,7 @@ its elapsed seconds:
                       forward and one backward train-kernel call per rank
                       per step; then fit_scene(mesh) for 20 steps with
                       checkpoints at 10 and 20, resumed from 10 (losses
-                      within 1e-3), rank 0's last checkpoint read by a
+                      and params bit for bit), rank 0's last checkpoint read by a
                       single-device load_checkpoint equal to every rank's
                       returned params;
 15. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
@@ -230,7 +239,8 @@ its elapsed seconds:
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
 
-Then one JSON line of per-kernel numbers (seven kernels: the GEMM's two), the card line
+Then one JSON line of per-kernel numbers (eight kernels: the GEMM's two,
+and the segment sum, which replaces no TPU kernel), the card line
 again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero without the ok line. Logs go
 to stderr.
@@ -332,20 +342,12 @@ TRAIN_H, TRAIN_W = 480, 640
 #: The fit main path (fit_scene on those views): steps, the densify and
 #: checkpoint cadences (episodes at 20 and 40 of 60 with densify_stop 0.7),
 #: the step resumed from, and the synchronized steps timed with and
-#: without densify. The checkpoint restores the state bit for bit; the
-#: resumed steps then differ from the uninterrupted ones in float order
-#: (the card's gradient sums have no fixed order). Up to the next
-#: episode that is float noise: the resumed losses are held within
-#: FIT_RESUME_REL relative of the uninterrupted run's. A splat near the
-#: opacity or gradient threshold may then fall the other way at the
-#: episode (one of 500k did on an H100), which shifts every later dead
-#: slot's donor: episode counts are held within FIT_RESUME_REL of the
-#: splat budget, and the losses after it are printed, not held (two
-#: uninterrupted runs of this fit on one H100 ended 7% apart; PERF.md).
+#: without densify. Every sum of the step has a fixed order on the card,
+#: so the fit repeats itself and its resume bit for bit, as the JAX
+#: package's tests/test_train.py holds its own.
 FIT_STEPS = 60
 FIT_DENSIFY_EVERY = 20
 FIT_CHECKPOINT_EVERY = 30
-FIT_RESUME_REL = 1e-3
 FIT_TIMED_STEPS = 10
 #: The fit-app dataset: views on the training orbit, 640×480 .npy targets.
 FIT_APP_VIEWS = 8
@@ -1539,6 +1541,29 @@ def walked_rows(torch, off, i_end_a, i_end_b):
     return first + rank
 
 
+def same_bits(torch, a, b):
+    """True where two tensors hold the same bits: equal shape and type,
+    NaN where NaN, and every other entry bit for bit (so 0.0 is not
+    -0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    a, b = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
+    return bool(torch.equal(a.contiguous().view(ints), b.contiguous().view(ints)))
+
+
+def params_bit_equal(torch, a, b):
+    """Every leaf of two SceneParams bit-equal (None where None)."""
+    return all((x is None and y is None) or (x is not None and y is not None
+                                             and same_bits(torch, x, y))
+               for x, y in zip(a, b))
+
+
 def grad_rel(d, ref):
     """Per gradient column: max |d − ref| over max |ref|."""
     rel = {}
@@ -1556,7 +1581,8 @@ def compare_train(torch, name, sf, asg, cfg):
     against the plain backward on the kernel forward's stats and
     checkpoints, and the whole kernel chain against the whole plain chain
     (the plain backward on the plain forward's own). Columns 9–15 and the
-    lanes past the last tile exactly 0."""
+    lanes past the last tile exactly 0; two launches of the backward bit
+    for bit equal."""
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     kw = train_kw(cfg)
@@ -1575,6 +1601,7 @@ def compare_train(torch, name, sf, asg, cfg):
     gout = torch.randn(stats_k.shape, generator=gen, device=DEVICE)
     gout[4:] = 0.0
     d_k = tt.train_backward(*args, gout, stats_k, chk_k, **kw)
+    repeat_equal = same_bits(torch, d_k, tt.train_backward(*args, gout, stats_k, chk_k, **kw))
     d_p = tt.train_backward_plain(*args, gout, stats_k, chk_k, **kw)
     d_chain = tt.train_backward_plain(*args, gout, stats_p, chk_p, **kw)
     rel = grad_rel(d_k, d_p)
@@ -1590,6 +1617,7 @@ def compare_train(torch, name, sf, asg, cfg):
            "tiles_exit_differs": tiles_exit_differs,
            "bwd_max_abs": bwd_abs, "bwd_rel_per_column": rel,
            "chain_rel_per_column": chain_rel,
+           "bwd_two_launches_bit_equal": repeat_equal,
            "rows_9_15_and_pad_zero": rest_zero}
     out(res)
     check(math.isfinite(fwd_err) and fwd_err <= TRAIN_FWD_MAX_ABS,
@@ -1601,6 +1629,7 @@ def compare_train(torch, name, sf, asg, cfg):
             check(math.isfinite(v) and v <= TRAIN_GRAD_REL,
                   f"{name}: {label} vs plain, column {key}: relative {v:.3g}")
     check(rest_zero, f"{name}: gradient outside columns 0-8 or past the last lane")
+    check(repeat_equal, f"{name}: two launches of the backward kernel differ")
     return (max(fwd_err, chk_err), (bwd_abs, max(max(rel.values()), max(chain_rel.values()))),
             (stats_k, chk_k, off, n_chk, gout, stats_p, chk_p))
 
@@ -1629,6 +1658,53 @@ def pass_ms(torch, fn, reps=5):
     return by_name
 
 
+def segment_sum_bound_ms(rows, ids, n):
+    """Least time of one segment sum on an H100: bytes (the rows and their
+    int64 ids read once, the (n, D) sums written once) over the HBM peak;
+    its one add per element read is far below the fp32 peak."""
+    n_bytes = rows.numel() * 4 + ids.numel() * 8 + n * rows.shape[1] * 4
+    return n_bytes / PEAK_HBM_BYTES * 1e3
+
+
+def phase_segment_sum(torch, rows, ids, n):
+    """The segment sum (the transpose of the instance-row gather) on the
+    rows the train-500k first step's backward gives it: the kernel
+    against its plain version on the card and against the CPU's
+    index_add_ of the same rows (bit for bit: both add each splat's rows
+    in their index order), two launches bit-equal; the wrapper's
+    (argsort, search, kernel) and the kernel's device ms beside the
+    plain version's, one index_add_'s and the bound."""
+    from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
+
+    got = seg.segment_sum(rows, ids, n)
+    again = seg.segment_sum(rows, ids, n)
+    plain = seg.segment_sum_plain(rows, ids, n)
+    cpu = torch.zeros((n, rows.shape[1])).index_add_(0, ids.cpu(), rows.cpu())
+    library = lambda: rows.new_zeros((n, rows.shape[1])).index_add_(0, ids, rows)  # noqa: E731
+    max_err = float((got - plain).abs().max())
+    res = {
+        "rows": rows.shape[0], "segments": n, "columns": rows.shape[1],
+        "longest_segment": int(torch.bincount(ids, minlength=n).max()),
+        "two_launches_bit_equal": same_bits(torch, got, again),
+        "bit_equal_to_plain": same_bits(torch, got, plain),
+        "bit_equal_to_cpu_index_add": same_bits(torch, got.cpu(), cpu),
+        "index_add_on_card_max_abs_vs_kernel": float((library() - got).abs().max()),
+        "max_abs_err": max_err,
+        "ms": cuda_ms(torch, lambda: seg.segment_sum(rows, ids, n), 10),
+        "device_ms": pass_ms(torch, lambda: seg.segment_sum(rows, ids, n)),
+        "plain_ms": cuda_ms(torch, lambda: seg.segment_sum_plain(rows, ids, n), 1),
+        "library_ms": cuda_ms(torch, library, 10),
+        "bound_ms": segment_sum_bound_ms(rows, ids, n),
+        "bound_by": "bytes",
+        "library_call": "torch.zeros((n, 16)).index_add_(0, ids, rows) (float atomics)",
+    }
+    out({"segment_sum": res})
+    check(res["two_launches_bit_equal"], "segment sum: two launches differ")
+    check(res["bit_equal_to_plain"], f"segment sum: kernel vs plain max {max_err:.3g}")
+    check(res["bit_equal_to_cpu_index_add"], "segment sum: kernel vs the CPU's index_add_")
+    return res
+
+
 def launches_per_call(torch, fn, counter):
     """Kernel launches one ``fn()`` makes, read off ``counter.kernel_launches``."""
     before = counter.kernel_launches
@@ -1645,9 +1721,15 @@ def phase_train_kernel_vs_plain(torch, gt, frame):
     the kernel launches of one call."""
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
-    sf, asg, cfg = frame
+    sf, asg, cfg, n_splats = frame
     fwd_err, bwd_err, (stats, chk, off, n_chk, gout, stats_p, chk_p) = compare_train(
         torch, f"trained_500k {cfg.width}x{cfg.height}, first step", sf, asg, cfg)
+    # The segment sum on the rows this backward gives the gather's transpose.
+    ids = asg.gaussian_id.to(torch.int64)
+    d_feats = tt.train_backward(sf, asg.tile_start, asg.tile_count, off, gout, stats, chk,
+                                **train_kw(cfg))
+    seg_res = phase_segment_sum(torch, d_feats[: ids.shape[0]].contiguous(), ids, n_splats)
+    del d_feats
     errs = [(fwd_err, bwd_err)]
     for tiles in ((0, 0), (4, 2)):
         heavy = heavy_overdraw_inputs(gt, tiles)
@@ -1684,7 +1766,7 @@ def phase_train_kernel_vs_plain(torch, gt, frame):
         "bwd_max_rel_err": max(b[1] for _, b in errs),
     }}
     out(res)
-    return res["train_kernel_times"]
+    return {**res["train_kernel_times"], "segment_sum": seg_res}
 
 
 def grads_finite(torch, gt, params, camp, target, cfg):
@@ -1695,14 +1777,53 @@ def grads_finite(torch, gt, params, camp, target, cfg):
     return all(bool(torch.isfinite(g).all()) for g in grads)
 
 
+def step_grads(torch, gt, params, camp, target, cfg):
+    """One training step's gradients as the densifying step takes them:
+    ({leaf or "ndc": gradient}, loss), the NDC probe's gradient the
+    view-space one that densification keys on."""
+    leaves = gt.SceneParams(*(None if p is None else p.detach().requires_grad_(True)
+                              for p in params))
+    probe = torch.zeros((2, params.positions.shape[0]), dtype=torch.float32,
+                        device=params.positions.device, requires_grad=True)
+    loss = gt.l1_dssim_loss(leaves, camp, target, cfg, ndc_probe=probe)
+    names = [f for f, p in zip(gt.SceneParams._fields, leaves) if p is not None]
+    grads = torch.autograd.grad(loss, [p for p in leaves if p is not None] + [probe])
+    return dict(zip(names + ["ndc"], grads)), loss.detach()
+
+
+def phase_train_repro(torch, gt, params0, camp, target, cfg, opt):
+    """train-500k from one state, twice: every parameter's gradient, the
+    NDC gradient and the loss bit-equal, and two make_train_step steps'
+    params, Adam moments and losses bit-equal."""
+    g1, l1 = step_grads(torch, gt, params0, camp, target, cfg)
+    g2, l2 = step_grads(torch, gt, params0, camp, target, cfg)
+    res = {"grads": {k: same_bits(torch, g1[k], g2[k]) for k in g1}}
+    res["grads"]["loss"] = same_bits(torch, l1, l2)
+    del g1, g2
+    step, _ = gt.make_train_step(cfg, optimizer=opt, loss_fn=gt.l1_dssim_loss)
+    a = step(params0, opt.init(params0), camp, target)
+    b = step(params0, opt.init(params0), camp, target)
+    res["step"] = {"params": params_bit_equal(torch, a[0], b[0]),
+                   "mu": params_bit_equal(torch, a[1].mu, b[1].mu),
+                   "nu": params_bit_equal(torch, a[1].nu, b[1].nu),
+                   "loss": same_bits(torch, a[2], b[2])}
+    out({"train_repro": res})
+    for part, equal in res.items():
+        differ = [k for k, v in equal.items() if not v]
+        check(not differ, f"train-500k: two runs from one state differ in {part} {differ}")
+    return res
+
+
 def phase_train(torch, gt, scene, card):
     """The training main path at full width: make_train_step with the
     3DGS optimizer and l1_dssim_loss on data/trained_500k.ply at 640×480,
     TRAIN_STEPS steps cycling TRAIN_POSES views whose targets are the
     fitted params' own renders, from a seeded perturbation. Counts of
-    both train kernels are set to 0 just before the steps and read just
-    after. Then CUDA-event stage times of one step."""
+    both train kernels and the segment sum are set to 0 just before the
+    steps and read just after. Then the step twice from one state
+    (phase_train_repro) and CUDA-event stage times of one step."""
     from gaussianrenderer_tpu_torch.ops.compositing import gather_sorted_features_seg
+    from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
     from gaussianrenderer_tpu_torch.train import apply_updates
 
@@ -1726,6 +1847,7 @@ def phase_train(torch, gt, scene, card):
     losses, step_ms = [], []
     tt.train_forward.launches = tt.train_backward.launches = 0
     tt.train_forward.kernel_launches = tt.train_backward.kernel_launches = 0
+    seg.segment_sum.launches = 0
     for s in range(TRAIN_STEPS):
         i = s % TRAIN_POSES
         (params, state, loss), ms = host_ms(
@@ -1734,6 +1856,7 @@ def phase_train(torch, gt, scene, card):
         step_ms.append(ms)
     launches = {"tile_train_fwd": tt.train_forward.launches,
                 "tile_train_bwd": tt.train_backward.launches}
+    seg_launches = seg.segment_sum.launches
     kernel_launches = {"tile_train_fwd": tt.train_forward.kernel_launches,
                        "tile_train_bwd": tt.train_backward.kernel_launches}
 
@@ -1744,6 +1867,8 @@ def phase_train(torch, gt, scene, card):
           f"train-500k: kernel calls {launches} in {TRAIN_STEPS} steps")
     check(all(kernel_launches[k] >= TRAIN_STEPS for k in launches),
           f"train-500k: kernel launches {kernel_launches} in {TRAIN_STEPS} steps")
+    check(seg_launches == TRAIN_STEPS,
+          f"train-500k: {seg_launches} segment-sum launches in {TRAIN_STEPS} steps")
     # The file holds a few splats with NaN parameters (never valid, zero
     # gradient): every parameter that was finite must stay finite.
     check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
@@ -1754,6 +1879,7 @@ def phase_train(torch, gt, scene, card):
     with torch.no_grad():
         psnr_after = [psnr_t(gt.render_for_training(params, c, cfg), t)
                       for c, t in zip(cams, targets)]
+    repro = phase_train_repro(torch, gt, params0, cams[0], targets[0], cfg, opt)
 
     # Stage times of one step at pose 0 from the perturbed params.
     camp, target = cams[0], targets[0]
@@ -1836,6 +1962,8 @@ def phase_train(torch, gt, scene, card):
         "stage_ms": stages,
         "kernel_launches": launches,
         "kernel_launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "segment_sum_launches": seg_launches,
+        "two_runs_bit_equal": all(all(v.values()) for v in repro.values()),
         "kernels_launched_by_the_calls": kernel_launches,
         "psnr_db_before": psnr_before, "psnr_db_after": psnr_after,
         "card": card,
@@ -1857,12 +1985,15 @@ def phase_fit(torch, gt, scene, card):
     at 640×480 over the train-500k views (targets the file's own renders)
     from the seeded perturbation, l1_dssim_loss, the 3DGS Adam over
     FIT_STEPS, densify episodes every FIT_DENSIFY_EVERY steps, checkpoints
-    every FIT_CHECKPOINT_EVERY; then evaluate on the views, and a resume
-    from the first checkpoint. Counts of both train kernels are set to 0
-    just before the fit and read just after, and again after evaluate.
-    Then the densifying step against the plain step in turns, and one
-    densify_step episode (with no host wait: sync debug mode)."""
+    every FIT_CHECKPOINT_EVERY; then evaluate on the views, the same fit
+    again and a resume from the first checkpoint, both bit-equal to the
+    first run (losses, episodes, final params). Counts of both train
+    kernels and the segment sum are set to 0 just before the fit and read
+    just after, and again after evaluate. Then the densifying step
+    against the plain step in turns, and one densify_step episode (with
+    no host wait: sync debug mode)."""
     from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     import numpy as np
@@ -1887,7 +2018,7 @@ def phase_fit(torch, gt, scene, card):
     def keep(step, params, loss):
         at_checkpoint.setdefault(step, params)
 
-    tt.train_forward.launches = tt.train_backward.launches = 0
+    tt.train_forward.launches = tt.train_backward.launches = seg.segment_sum.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fitted, hist = gt.fit_scene(views, cfg, start, optimizer=optimizer(), checkpoint_dir=ck,
@@ -1896,7 +2027,8 @@ def phase_fit(torch, gt, scene, card):
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3
     fit_launches = {"tile_train_fwd": tt.train_forward.launches,
-                    "tile_train_bwd": tt.train_backward.launches}
+                    "tile_train_bwd": tt.train_backward.launches,
+                    "segment_sum": seg.segment_sum.launches}
     t0 = time.perf_counter()
     report = gt.evaluate(fitted, views, cfg)
     evaluate_ms = (time.perf_counter() - t0) * 1e3
@@ -1908,22 +2040,18 @@ def phase_fit(torch, gt, scene, card):
     checkpoints = sorted(os.listdir(ck))
     resume_dir = os.path.join(ck, f"step_{FIT_CHECKPOINT_EVERY:06d}")
     restored, _, _, _ = gt.load_checkpoint(resume_dir, start)
-    restored_equal = all(
-        p is None or bool(((p == r) | (torch.isnan(p) & torch.isnan(r))).all())
-        for p, r in zip(at_checkpoint[FIT_CHECKPOINT_EVERY], restored))
+    restored_equal = params_bit_equal(torch, at_checkpoint[FIT_CHECKPOINT_EVERY], restored)
+    again, hist_a = gt.fit_scene(views, cfg, start, optimizer=optimizer(), **kw)
     resumed, hist_r = gt.fit_scene(views, cfg, start, optimizer=optimizer(),
                                    resume_from=resume_dir, **kw)
-    del resumed, restored
-    shutil.rmtree(ck)
     later = [e for e in episodes if e["step"] > FIT_CHECKPOINT_EVERY]
-    # Losses of the resumed steps up to the first resumed episode's step
-    # (an episode runs after its step's loss).
-    upto = (later[0]["step"] if later else FIT_STEPS) - FIT_CHECKPOINT_EVERY
-    resume_rel = max(abs(a - b) / b for a, b in zip(
-        hist_r["losses"][:upto], losses[FIT_CHECKPOINT_EVERY:FIT_CHECKPOINT_EVERY + upto]))
-    final_rel = abs(hist_r["losses"][-1] - losses[-1]) / losses[-1]
-    count_diff = max((abs(a[k] - b[k]) for a, b in zip(hist_r["densify"], later)
-                      for k in ("dead", "eligible", "recycled")), default=0)
+    repeat = {"losses": hist_a["losses"] == losses, "episodes": hist_a["densify"] == episodes,
+              "params": params_bit_equal(torch, again, fitted)}
+    resume = {"losses": hist_r["losses"] == losses[FIT_CHECKPOINT_EVERY:],
+              "episodes": hist_r["densify"] == later,
+              "params": params_bit_equal(torch, resumed, fitted)}
+    del again, resumed, restored
+    shutil.rmtree(ck)
 
     # The densifying step beside the plain one, in turns, from the start.
     opt = optimizer()
@@ -1973,11 +2101,10 @@ def phase_fit(torch, gt, scene, card):
         "psnr_db_start": psnr_start, "psnr_db_fitted": report["psnr"],
         "ssim_fitted": report["ssim"],
         "evaluate_ms_per_view": evaluate_ms / len(views),
+        "repeat_bit_equal": repeat,
         "resumed_from": FIT_CHECKPOINT_EVERY, "resumed_episodes": hist_r["densify"],
         "resumed_final_loss": hist_r["losses"][-1], "final_loss": losses[-1],
-        "resumed_loss_rel_before_episode": resume_rel,
-        "resumed_final_loss_rel": final_rel, "resumed_losses": hist_r["losses"],
-        "resumed_episode_count_max_diff": count_diff,
+        "resumed_losses": hist_r["losses"], "resume_bit_equal": resume,
         "checkpoint_restores_bit_equal": restored_equal,
         "densify_step_ms_median": statistics.median(d_ms), "densify_step_ms_all": d_ms,
         "plain_step_ms_median": statistics.median(p_ms), "plain_step_ms_all": p_ms,
@@ -1997,7 +2124,8 @@ def phase_fit(torch, gt, scene, card):
     check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
               for p, p0 in zip(fitted, start) if p is not None),
           "fit-500k: a finite parameter became non-finite")
-    check(fit_launches == {"tile_train_fwd": FIT_STEPS, "tile_train_bwd": FIT_STEPS},
+    check(fit_launches == {"tile_train_fwd": FIT_STEPS, "tile_train_bwd": FIT_STEPS,
+                           "segment_sum": FIT_STEPS},
           f"fit-500k: train kernel calls {fit_launches} in {FIT_STEPS} steps")
     check(eval_launches == {"tile_train_fwd": len(views), "tile_train_bwd": 0},
           f"fit-500k: evaluate's train kernel calls {eval_launches}")
@@ -2007,11 +2135,12 @@ def phase_fit(torch, gt, scene, card):
     check(restored_equal, "fit-500k: the step-30 checkpoint does not restore the fit's params")
     check(len(hist_r["losses"]) == FIT_STEPS - FIT_CHECKPOINT_EVERY,
           f"fit-500k: {len(hist_r['losses'])} resumed steps")
-    check([e["step"] for e in hist_r["densify"]] == [e["step"] for e in later]
-          and count_diff <= FIT_RESUME_REL * n,
-          f"fit-500k: resumed episodes {hist_r['densify']} against {later}")
-    check(resume_rel <= FIT_RESUME_REL,
-          f"fit-500k: resumed losses {hist_r['losses'][:upto]} vs the fit's")
+    check(all(repeat.values()),
+          f"fit-500k: a second run of the fit differs from the first: {repeat} "
+          f"(losses {hist_a['losses']}, episodes {hist_a['densify']})")
+    check(all(resume.values()),
+          f"fit-500k: the resume from step {FIT_CHECKPOINT_EVERY} differs from the fit: "
+          f"{resume} (losses {hist_r['losses']}, episodes {hist_r['densify']})")
     check(not syncs, f"fit-500k: densify_step waits for the device: {syncs}")
     return res
 
@@ -3599,10 +3728,14 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
     fit_launches = {"tile_train_fwd": tt.train_forward.launches,
                     "tile_train_bwd": tt.train_backward.launches}
     first = os.path.join(ckpt_dir, f"step_{MC_FIT_CHECKPOINT:06d}")
-    _, resumed = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
-                              strip_bounds=bounds, resume_from=first, log_every=5)
-    digest = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
-              for k, v in fitted._asdict().items() if v is not None}
+    refitted, resumed = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
+                                     strip_bounds=bounds, resume_from=first, log_every=5)
+
+    def sha(tree):
+        return {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+                for k, v in tree._asdict().items() if v is not None}
+
+    digest = sha(fitted)
     return {"rank": mesh.rank, "backend": mesh.backend, "shard_rows": [lo, hi],
             "single_loss": float(loss1), "losses": losses, "step_ms_median":
             statistics.median(step_ms), "step_ms_all": step_ms, "launches": launches,
@@ -3610,6 +3743,7 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
             "finite_params_stay_finite": finite, "fit_losses": hist["losses"],
             "fit_ms_per_step": fit_ms, "fit_launches": fit_launches,
             "resumed_losses": resumed["losses"], "fitted_sha256": digest,
+            "resumed_sha256": sha(refitted),
             "fitted_splats": int(fitted.positions.shape[0])}
 
 
@@ -3654,9 +3788,9 @@ def phase_multichip_train(torch, gt, scene, card):
               f"{name}: fit kernel calls {r['fit_launches']}")
         res_l = r["resumed_losses"]
         ref_l = fit[MC_FIT_CHECKPOINT:]
-        check(len(res_l) == len(ref_l) and all(
-            abs(a - b) <= FIT_RESUME_REL * abs(b) for a, b in zip(res_l, ref_l)),
-            f"{name}: resumed losses {res_l} vs {ref_l}")
+        check(res_l == ref_l, f"{name}: resumed losses {res_l} vs {ref_l}")
+        check(r["resumed_sha256"] == r["fitted_sha256"],
+              f"{name}: the resumed fit's params differ from the fit's")
         check(r["fitted_splats"] == scene.num_gaussians, f"{name}: fitted N")
         check(r["fitted_sha256"] == ranks[0]["fitted_sha256"], f"{name}: fitted params differ")
     # Rank 0's last checkpoint is the whole un-padded state a single-device
@@ -3673,6 +3807,115 @@ def phase_multichip_train(torch, gt, scene, card):
     launches = {k: sum(r["launches"][k] + r["fit_launches"].get(k, 0) for r in ranks)
                 for k in ("tile_train_fwd", "tile_train_bwd")}
     return {"ranks": ranks, "bounds": bounds, "seconds": seconds, "launches": launches}
+
+
+def train_times(root) -> int:
+    """``--train-times ROOT``: the training path's times with the port
+    package of the checkout at ROOT (this checkout's data and harness):
+    TRAIN_STEPS synchronized train-500k steps (host clock), a FIT_STEPS
+    fit-500k fit without checkpoints (wall ms a step, one synchronize at
+    its end), and the backward train kernel on the first step's inputs
+    (CUDA events) with each of its passes' device ms (torch.profiler).
+    Prints one ``{"train_times": ...}`` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import gaussianrenderer_tpu_torch as gt
+    from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
+
+    check(os.path.dirname(os.path.dirname(os.path.abspath(gt.__file__))) == root,
+          f"imported {gt.__file__}, not the package under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = trained_500k_setup()[0]
+    cfg = train_500k_config(gt)
+    cams = train_poses(gt, cfg)
+    truth = gt.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        targets = [gt.render_for_training(truth, c, cfg) for c in cams]
+    params0 = perturbed(torch, gt, truth)
+    opt = gt.make_3dgs_optimizer()
+    step, _ = gt.make_train_step(cfg, optimizer=opt, loss_fn=gt.l1_dssim_loss)
+    step(params0, opt.init(params0), cams[0], targets[0])  # builds, warms up
+    params, state = params0, opt.init(params0)
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        i = s % TRAIN_POSES
+        (params, state, loss), ms = host_ms(
+            torch, lambda: step(params, state, cams[i], targets[i]))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    views = list(zip(cams, targets))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = gt.fit_scene(views, cfg, params0, steps=FIT_STEPS,
+                           optimizer=gt.make_3dgs_optimizer(position_lr_max_steps=FIT_STEPS),
+                           loss_fn=gt.l1_dssim_loss, densify_every=FIT_DENSIFY_EVERY,
+                           densify_stop=0.7)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    with torch.no_grad():
+        sf, asg = train_inputs(gt, params0, cams[0], cfg)
+    kw = train_kw(cfg)
+    off, n_chk = tt.chunk_offsets(asg.tile_start, asg.tile_count, cfg.chunk_size)
+    args = (sf, asg.tile_start, asg.tile_count, off)
+    stats, chk = tt.train_forward(*args, n_chk, **kw)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    gout = torch.randn(stats.shape, generator=gen, device=DEVICE)
+    gout[4:] = 0.0
+    bwd = lambda: tt.train_backward(*args, gout, stats, chk, **kw)  # noqa: E731
+    out({"train_times": {
+        "package": root, "card": card_line(),
+        "step_ms_median": statistics.median(step_ms), "step_ms_all": step_ms,
+        "losses": losses, "fit_ms_per_step": fit_ms, "fit_losses": hist["losses"],
+        "fit_episodes": hist["densify"], "bwd_ms": cuda_ms(torch, bwd, 10),
+        "bwd_pass_device_ms": pass_ms(torch, bwd, reps=10),
+        "instances": int(asg.total_instances), "checkpoint_rows": n_chk,
+    }})
+    return 0
+
+
+def train_turns(parent) -> int:
+    """``--train-turns PARENT``: :func:`train_times` of the checkout at
+    PARENT (say, the parent commit's ``git archive``) and of this one, in
+    turns (parent, change, change, parent), each in a process of its own
+    on the one card. Prints each run's line, then one ``{"train_turns":
+    ...}`` line with both versions' numbers side by side."""
+    runs = []
+    for label, root in (("parent", parent), ("change", REPO), ("change", REPO),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-times",
+                               root], capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"train_times"')]
+        if proc.returncode != 0 or not lines:
+            log(proc.stderr[-4000:])
+            raise RuntimeError(f"--train-times {root} exited {proc.returncode}")
+        out(lines[-1])
+        runs.append({"label": label, **json.loads(lines[-1])["train_times"]})
+
+    def side(key):
+        return {lab: [r[key] for r in runs if r["label"] == lab] for lab in ("parent", "change")}
+
+    def grads_pass(r):
+        return r["bwd_pass_device_ms"].get("bwd_grads_kernel")
+
+    out({"train_turns": {
+        "order": [r["label"] for r in runs], "card": card_line(),
+        "step_ms_median": side("step_ms_median"), "fit_ms_per_step": side("fit_ms_per_step"),
+        "bwd_ms": side("bwd_ms"),
+        "bwd_grads_pass_device_ms": {lab: [grads_pass(r) for r in runs if r["label"] == lab]
+                                     for lab in ("parent", "change")},
+        "fit_losses": side("fit_losses"),
+        "runs_repeat_losses": {
+            lab: all(r["losses"] == same[0]["losses"] and r["fit_losses"] == same[0]["fit_losses"]
+                     for r in same)
+            for lab, same in ((lab, [r for r in runs if r["label"] == lab])
+                              for lab in ("parent", "change"))},
+    }})
+    return 0
 
 
 def main() -> int:
@@ -3782,7 +4025,8 @@ def main() -> int:
         with torch.no_grad():
             sf, asg = train_inputs(gt, perturbed(torch, gt, truth),
                                    train_poses(gt, tcfg)[0], tcfg)
-        train_times = phase_train_kernel_vs_plain(torch, gt, (sf, asg, tcfg))
+        train_times = phase_train_kernel_vs_plain(torch, gt,
+                                                  (sf, asg, tcfg, scene500.num_gaussians))
         del sf, asg, truth
 
     with Phase("train-500k", torch):
@@ -3920,6 +4164,26 @@ def main() -> int:
         "bench_shape_step_ms_median": bench_res["step_ms_median"],
         "fit_launches": fit_res["train_kernel_calls_fit"][f"tile_train_{kind}"],
     } for kind, line in (("fwd", 154), ("bwd", 295))] + [{
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "gaussianrenderer_tpu/ops/compositing.py:107",
+        "replaces_note": ("no TPU kernel: the JAX package's transpose of the training "
+                          "gather, _gather_rows_seg_bwd, is XLA's sort and cumsum"),
+        "launches": train_res["segment_sum_launches"],
+        "launches_by_phase": {"train-500k": train_res["segment_sum_launches"],
+                              "fit-500k": fit_res["train_kernel_calls_fit"]["segment_sum"]},
+        "max_abs_err": train_times["segment_sum"]["max_abs_err"],
+        "ms": train_times["segment_sum"]["ms"],
+        "device_ms": train_times["segment_sum"]["device_ms"],
+        "plain_ms": train_times["segment_sum"]["plain_ms"],
+        "bound_ms": train_times["segment_sum"]["bound_ms"],
+        "bound_by": train_times["segment_sum"]["bound_by"],
+        "library_ms": train_times["segment_sum"]["library_ms"],
+        "library_call": train_times["segment_sum"]["library_call"],
+        "shape": (f"{train_times['segment_sum']['rows']} rows of 16 f32 into "
+                  f"{train_times['segment_sum']['segments']} splats (train-500k first step)"),
+    }] + [{
         "name": "matmul_sm90",
         "route": "cuda",
         "source": "gaussianrenderer_tpu_torch/csrc/matmul.cu",
@@ -3983,4 +4247,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-times":
+        sys.exit(train_times(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-turns":
+        sys.exit(train_turns(sys.argv[2]))
     sys.exit(main())

@@ -40,7 +40,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 NATIVE_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_native")
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
-SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort")
+SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort", "segment_sum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -79,6 +79,15 @@ _SIGNATURES = {
     "matmul": {
         "gr_matmul": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
         "gr_matmul_sm90": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "segment_sum": {
+        # (rows, d, order, offsets, n, out, stream)
+        "gr_segment_sum": (
+            _c_int,
+            [_c_void_p, _c_int, _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p,
+             _c_void_p],
+        ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "block_sort": {

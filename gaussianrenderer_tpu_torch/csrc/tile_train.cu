@@ -52,7 +52,10 @@
 //                              chained through the 0.99 clamp, the mask and
 //                              the md2 clip to d(cx, cy, A, B, C, op, r, g, b)
 //                              and summed over the tile's pixels (a warp
-//                              shuffle, then a shared [9][K] accumulator).
+//                              shuffle; each warp adds its sums into its own
+//                              [9][K] slice of shared memory, and the slices
+//                              are added over warps 0..7 in order, so the
+//                              sum has one order whatever the warps' timing).
 //                              Only lanes inside the tile's range are
 //                              written: each belongs to one tile and one
 //                              chunk, so d_feats needs no atomics and starts
@@ -115,6 +118,7 @@ struct GrTrainArgs {
 namespace {
 
 constexpr int kThreads = 256;       // threads of a row block
+constexpr int kWarps = kThreads / 32;
 constexpr int kPPT = 4;             // pixels a thread walks at once
 constexpr int kGroup = kThreads * kPPT;
 constexpr int kTileThreads = 1024;  // most threads of a tile block
@@ -591,7 +595,12 @@ __global__ void __launch_bounds__(kTileThreads) bwd_suffix_kernel(GrTrainArgs a)
 }
 
 // Backward pass 3: per-lane gradients of a row, summed over the tile's
-// pixels; the block writes columns 0-8 of the row's in-range lanes.
+// pixels; the block writes columns 0-8 of the row's in-range lanes. The
+// sums have a fixed order, so two launches on the same inputs agree bit
+// for bit: within a warp the shuffle tree, within a warp's slice the pixel
+// groups in order (lane 0 of the warp is its only writer), across warps
+// warp 0 first, then 1, ..., 7. A shared atomicAdd would add the warps in
+// the order they arrive, which changes from launch to launch.
 __global__ void __launch_bounds__(kThreads) bwd_grads_kernel(GrTrainArgs a) {
   extern __shared__ float4 smem4[];
   Lane* lanes = reinterpret_cast<Lane*>(smem4);
@@ -601,9 +610,10 @@ __global__ void __launch_bounds__(kThreads) bwd_grads_kernel(GrTrainArgs a) {
   const long long pix = static_cast<long long>(r.tile) * r.P;
   if (r.ci >= static_cast<int>(a.stats[4 * TP + pix])) return;
   const int K = a.K;
-  float* s_grad = reinterpret_cast<float*>(lanes + K);  // [kGradCols][K]
+  float* s_part = reinterpret_cast<float*>(lanes + K);  // [kWarps][kGradCols][K]
+  float* w_part = s_part + (threadIdx.x >> 5) * kGradCols * K;
   stage_chunk(lanes, a.feats, r, K);
-  for (int j = threadIdx.x; j < kGradCols * K; j += blockDim.x) s_grad[j] = 0.0f;
+  for (int j = threadIdx.x; j < kWarps * kGradCols * K; j += blockDim.x) s_part[j] = 0.0f;
   __syncthreads();
   const float kTEps = f32(1e-3);
   const float kAlphaMax = f32(0.99);
@@ -681,7 +691,7 @@ __global__ void __launch_bounds__(kThreads) bwd_grads_kernel(GrTrainArgs a) {
         for (int c = 0; c < kGradCols; ++c) v[c] = warp_sum(v[c]);
         if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-          for (int c = 0; c < kGradCols; ++c) atomicAdd(&s_grad[c * K + l], v[c]);
+          for (int c = 0; c < kGradCols; ++c) w_part[c * K + l] += v[c];
         }
       }
       any = any_of(live);
@@ -694,7 +704,12 @@ __global__ void __launch_bounds__(kThreads) bwd_grads_kernel(GrTrainArgs a) {
     if (slot < r.start || slot >= r.end) continue;
     float* d = a.d_feats + static_cast<long long>(slot) * kFeatDim;
 #pragma unroll
-    for (int c = 0; c < kGradCols; ++c) d[c] = s_grad[c * K + l];
+    for (int c = 0; c < kGradCols; ++c) {
+      float sum = s_part[c * K + l];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) sum = __fadd_rn(sum, s_part[(w * kGradCols + c) * K + l]);
+      d[c] = sum;
+    }
   }
 }
 
@@ -741,7 +756,10 @@ int gr_train_pass(int pass, const GrTrainArgs* args, void* stream) {
       bwd_suffix_kernel<<<a.num_tiles, tile_threads, 0, st>>>(a);
       break;
     case kBwdGrads: {
-      const size_t smem = lane_bytes + static_cast<size_t>(a.K) * kGradCols * sizeof(float);
+      // The lanes and every warp's gradient slice: K * (64 + 8 * 36) bytes,
+      // 180,224 at kMaxChunk (under the 232,448 a block may opt in to).
+      const size_t smem =
+          lane_bytes + static_cast<size_t>(a.K) * kWarps * kGradCols * sizeof(float);
       if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             bwd_grads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

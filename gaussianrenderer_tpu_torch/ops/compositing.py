@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from gaussianrenderer_tpu_torch.ops.cuda.segment_sum import segment_sum
 from gaussianrenderer_tpu_torch.ops.projection import ProjectedGaussians
 from gaussianrenderer_tpu_torch.ops.tiling import TileAssignment
 
@@ -90,7 +91,7 @@ def gather_sorted_features(
 
 class _GatherRowsSeg(torch.autograd.Function):
     """``feats[ids]`` whose backward sums each Gaussian's instance rows
-    with one ``index_add_``."""
+    in their sorted order (``ops/cuda/segment_sum.py``)."""
 
     @staticmethod
     def forward(ctx, feats, ids):
@@ -101,8 +102,7 @@ class _GatherRowsSeg(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d):
         (ids,) = ctx.saved_tensors
-        out = d.new_zeros((ctx.n, d.shape[1]))
-        return out.index_add_(0, ids, d), None
+        return segment_sum(d.contiguous(), ids, ctx.n), None
 
 
 def gather_sorted_features_seg(
@@ -112,9 +112,13 @@ def gather_sorted_features_seg(
     per-Gaussian sums of the (C, 16) cotangent rows.
 
     The JAX package sums them by a sort keyed on gaussian id and a
-    cumsum, because scatter-add is serial on the TPU; the card adds rows
-    by index in one ``index_add_``, so the emission counts that locate
-    the JAX package's segments are not needed here."""
+    cumsum, each segment a difference of two prefixes, because
+    scatter-add is serial on the TPU. The port adds each Gaussian's rows
+    directly, in their sorted (tile, depth) order, with one fixed order
+    on the card (no float atomics): a step gives the same gradient every
+    time, and on the CPU the same bits as ``index_add_``. Its stable
+    argsort by id takes the place of the emission counts that locate the
+    JAX package's segments."""
     rows = _GatherRowsSeg.apply(feats, assignment.gaussian_id.to(torch.int64))
     return _pad_chunk(rows, chunk_size)
 

@@ -130,13 +130,17 @@ def _blur_hw(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Separable Gaussian blur of a planar (3, H, W) image: two rank-1
     depthwise convolutions, VALID. In full fp32: var = blur(a²) − μ²
     cancels ~0.25-scale terms down to ~1e-4 variances, which TF32 (the
-    card's default for fp32 convolutions) would drown, so it is off here."""
+    card's default for fp32 convolutions) would drown, so it is off here.
+    cuDNN may only pick deterministic algorithms here (its default may
+    pick a backward that adds in a different order every run), so a
+    training step gives the same gradient every time; the setting holds
+    for these two calls alone, not for the process."""
     size = window.shape[0]
     kh = window.reshape(1, 1, size, 1).expand(3, 1, size, 1)
     kw = window.reshape(1, 1, 1, size).expand(3, 1, 1, size)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+                     deterministic=True, allow_tf32=False):
         x = torch.nn.functional.conv2d(img[None], kh, groups=3)
         x = torch.nn.functional.conv2d(x, kw, groups=3)
     return x[0]

@@ -23,8 +23,10 @@ Endpoints:
                  before frame t's draw and encode
   POST /load?name=x.ply   upload a scene file (.ply, .gsz or .splat; the
                  browser drag-drop target, reference hot swap
-                 ``canvas.cpp:280-296``), stored under a stable per-name
-                 path in the port's own upload directory
+                 ``canvas.cpp:280-296``), stored under its name in the
+                 server's private upload directory (mode 0700, made
+                 for each server and removed at its shutdown; the file
+                 is created anew and never through a symlink)
   GET /orbit?dx=&dy=   orbit by pixel deltas × orbit speed
   GET /zoom?d=         zoom along the view axis
   GET /set?k_sigma=&fov=&flip=&time=&view=   update UiSettings
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import sys
 import tempfile
@@ -52,8 +55,41 @@ import numpy as np
 
 from gaussianrenderer_tpu_torch.render import _png_encode
 
-#: Where ``POST /load`` stores uploads, one stable path per file name.
-UPLOAD_DIR = os.path.join(tempfile.gettempdir(), "gr_torch_uploads")
+#: Prefix of each viewer server's private upload directory
+#: (``tempfile.mkdtemp`` under the temp directory).
+UPLOAD_PREFIX = "gr_torch_uploads_"
+
+
+class _ViewerServer(ThreadingHTTPServer):
+    """The viewer's HTTP server with its own upload directory: made by
+    ``tempfile.mkdtemp`` (mode 0700, a new name for each server, so no
+    other user can create it first or plant a file in it) and removed
+    with its uploads at ``shutdown`` and ``server_close``."""
+
+    def __init__(self, address, handler):
+        super().__init__(address, handler)
+        self.upload_dir = tempfile.mkdtemp(prefix=UPLOAD_PREFIX)
+
+    def shutdown(self):
+        super().shutdown()
+        shutil.rmtree(self.upload_dir, ignore_errors=True)
+
+    def server_close(self):
+        super().server_close()
+        shutil.rmtree(self.upload_dir, ignore_errors=True)
+
+
+def _open_upload(path: str):
+    """A new file at ``path`` for writing (0600): a file of that name
+    from an earlier upload is unlinked first, so a re-upload replaces it,
+    and the open neither follows a symlink nor reuses a file that
+    appeared in between (``O_EXCL | O_NOFOLLOW``)."""
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        pass
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL | os.O_NOFOLLOW, 0o600)
+    return os.fdopen(fd, "wb")
 
 
 def _bmp_encode(img: np.ndarray) -> bytes:
@@ -226,7 +262,8 @@ refresh();
 def make_server(canvas, host: str = "127.0.0.1", port: int = 8800):
     """Build the viewer's ThreadingHTTPServer without starting it — the
     testable core of :func:`serve_canvas` (drive with ``serve_forever`` /
-    ``shutdown``; ``port=0`` picks a free port)."""
+    ``shutdown``; ``port=0`` picks a free port). Uploads go to the
+    server's ``upload_dir``, which ``shutdown`` removes."""
     lock = threading.Lock()
     #: Last /frame stage timings (ms), surfaced via /stats: the
     #: ``render()`` call (dispatch_ms), the draw with its device wait and
@@ -257,9 +294,8 @@ def make_server(canvas, host: str = "127.0.0.1", port: int = 8800):
                     length = int(self.headers.get("Content-Length", "0"))
                     if length <= 0 or length > 8 << 30:
                         raise ValueError("missing or oversized upload body")
-                    os.makedirs(UPLOAD_DIR, exist_ok=True)
-                    path = os.path.join(UPLOAD_DIR, name)
-                    with open(path, "wb") as fh:
+                    path = os.path.join(self.server.upload_dir, name)
+                    with _open_upload(path) as fh:
                         remaining = length
                         while remaining:
                             chunk = self.rfile.read(min(remaining, 1 << 20))
@@ -471,14 +507,17 @@ def make_server(canvas, host: str = "127.0.0.1", port: int = 8800):
                 except OSError:
                     pass
 
-    return ThreadingHTTPServer((host, port), Handler)
+    return _ViewerServer((host, port), Handler)
 
 
 def serve_canvas(canvas, host: str = "127.0.0.1", port: int = 8800) -> None:
     """Blocking HTTP viewer for a :class:`gaussianrenderer_tpu_torch.viewer.Canvas`."""
     server = make_server(canvas, host, port)
     print(f"viewer: http://{host}:{server.server_address[1]}/", flush=True)
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
 
 
 _MONITOR_PAGE = """<!DOCTYPE html>

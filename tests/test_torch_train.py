@@ -14,7 +14,7 @@ exactly zero, and all are within 1e-3 of the JAX gradient through the
 plain gather (XLA's scatter-add transpose): there one splat next to the
 near plane dominates every column, and the JAX training path's segment
 transpose, which differences f32 prefix sums, is itself 1.5e-2 off the
-exact transpose in the quaternion column (the port's ``index_add_`` sums
+exact transpose in the quaternion column (the port's segment sum adds
 each splat's rows directly).
 """
 

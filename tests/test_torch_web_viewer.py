@@ -9,6 +9,9 @@ timeout.
 
 import io
 import json
+import os
+import stat
+import tempfile
 import threading
 from http.client import HTTPConnection
 from urllib.error import HTTPError
@@ -182,6 +185,82 @@ def test_stream_yields_parts():
         assert json.loads(_get(s.base + "/stats"))["frame"]["streamed"] is True
 
 
+def _post(server, name, body):
+    conn = HTTPConnection("127.0.0.1", server.server_address[1], timeout=TIMEOUT)
+    try:
+        conn.request("POST", f"/load?name={name}", body=body,
+                     headers={"Content-Length": str(len(body))})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _ply_bytes(tmp_path, n, seed):
+    path = tmp_path / f"scene_{n}_{seed}.ply"
+    save_ply(jax_make_scene(n, seed=seed), str(path))
+    return path.read_bytes()
+
+
+def test_upload_dir_private_per_server_and_removed(tmp_path, monkeypatch):
+    """Each server makes its own upload directory under the temp
+    directory (mode 0700, a new name each), and shutdown removes it."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    c = _canvas()
+    with _Serving(wv.make_server, c) as a, _Serving(wv.make_server, c) as b:
+        dirs = [a.server.upload_dir, b.server.upload_dir]
+        assert dirs[0] != dirs[1]
+        for d in dirs:
+            assert os.path.dirname(d) == str(tmp_path)
+            assert os.path.basename(d).startswith(wv.UPLOAD_PREFIX)
+            assert stat.S_IMODE(os.lstat(d).st_mode) == 0o700
+            assert os.lstat(d).st_uid == os.getuid()
+    assert not any(os.path.exists(d) for d in dirs)
+
+
+@pytest.mark.parametrize("planted", ["old_shared_path", "upload_dir"])
+def test_upload_does_not_follow_a_planted_symlink(planted, tmp_path, monkeypatch):
+    """A symlink planted under the upload's name, in the old shared
+    ``gr_torch_uploads`` path or in the server's own directory before the
+    write, is not followed: its target keeps its bytes and the upload
+    lands in a new regular file (0600) in the server's directory."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    os.makedirs(tmp_path / "tmp")
+    victim = tmp_path / "victim.txt"
+    victim.write_bytes(b"keep me")
+    body = _ply_bytes(tmp_path, 123, 9)
+    c = _canvas()
+    with _Serving(wv.make_server, c) as s:
+        where = (os.path.join(tempfile.gettempdir(), "gr_torch_uploads")
+                 if planted == "old_shared_path" else s.server.upload_dir)
+        os.makedirs(where, exist_ok=True)
+        os.symlink(victim, os.path.join(where, "dropped.ply"))
+        status, reply = _post(s.server, "dropped.ply", body)
+        assert status == 200 and json.loads(reply) == {"ok": True, "gaussians": 123}
+        path = os.path.join(s.server.upload_dir, "dropped.ply")
+        assert c._last_drop == path
+        st = os.lstat(path)
+        assert stat.S_ISREG(st.st_mode) and stat.S_IMODE(st.st_mode) == 0o600
+        with open(path, "rb") as fh:
+            assert fh.read() == body
+    assert victim.read_bytes() == b"keep me"
+
+
+def test_second_upload_of_a_name_replaces_the_first(tmp_path):
+    """Two uploads under one name: the second replaces the first's file
+    (one file in the directory, the second's bytes) and its scene."""
+    first, second = _ply_bytes(tmp_path, 123, 9), _ply_bytes(tmp_path, 77, 3)
+    c = _canvas()
+    with _Serving(wv.make_server, c) as s:
+        for body, n in ((first, 123), (second, 77)):
+            status, reply = _post(s.server, "scene.ply", body)
+            assert status == 200 and json.loads(reply) == {"ok": True, "gaussians": n}
+        assert c.scene.num_gaussians == 77
+        assert os.listdir(s.server.upload_dir) == ["scene.ply"]
+        with open(os.path.join(s.server.upload_dir, "scene.ply"), "rb") as fh:
+            assert fh.read() == second
+
+
 @pytest.mark.parametrize("ext", [".ply", ".gsz", ".splat"])
 def test_drop_upload_hot_swaps(ext, tmp_path):
     """POST /load with .ply, .gsz and .splat bytes written by the JAX
@@ -201,7 +280,7 @@ def test_drop_upload_hot_swaps(ext, tmp_path):
             assert resp.status == 200 and json.loads(resp.read()) == {"ok": True,
                                                                       "gaussians": 123}
             assert c.scene.num_gaussians == 123 and c._last_drop.endswith(f"dropped{ext}")
-            assert c._last_drop.startswith(wv.UPLOAD_DIR)
+            assert c._last_drop.startswith(s.server.upload_dir + os.sep)
             for name, data in ((".evil", b"x"), (f"bad{ext}", b"not a scene")):
                 conn.request("POST", f"/load?name={name}", body=data,
                              headers={"Content-Length": str(len(data))})
