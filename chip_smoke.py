@@ -129,15 +129,30 @@ its elapsed seconds:
                       step beside the plain step (10 synchronized steps
                       each, in turns), one ``densify_step`` episode's
                       CUDA-event ms (checked free of host waits) and
-                      ``evaluate`` ms per view;
-13. fit-app         — apps/fit on a poses.json dataset of 8 views of the
+                      ``evaluate`` ms per view; one launch of the
+                      densify draw an episode;
+13. densify-draw    — the densify draw (ops/cuda/prng.py, JAX's
+                      threefry2x32, uniform and erf_inv) at (500000, 3):
+                      the kernel's bits and uniforms bit-equal to its
+                      plain version's on the card and on the CPU, its
+                      normals within 4 ulp of both (the differing values
+                      counted), two launches bit-equal; the bf16 draw of
+                      the GEMM harness at 8192² within a bf16 ulp of its
+                      plain version; the kernel's ms and device ms beside
+                      the plain version's, torch.randn's (the draw before
+                      it) and the bound; fit-500k's first episode, from
+                      its inputs, on the card and on the CPU: counts,
+                      recycled slots and donors equal, positions and
+                      raw_scales within 1e-5 of 1 + |value|, the other
+                      leaves and the moments bit-equal;
+14. fit-app         — apps/fit on a poses.json dataset of 8 views of the
                       file at 640×480 (.npy targets), refining the PLY
                       for 40 steps with densification, held-out views and
                       checkpoints (exit 0, PSNR lines, a PLY of the same
                       N), again resumed from step 20; apps/train_test with
                       its defaults (exit 0); the dataset is kept for
                       viewer-2m;
-14. multichip-train-500k
+15. multichip-train-500k
                     — make_multichip_train_step on data/trained_500k.ply at
                       its fitting config (640×480, 15 tile rows: balanced
                       strips) with 2 ranks sharing the card: the first
@@ -150,7 +165,7 @@ its elapsed seconds:
                       and params bit for bit), rank 0's last checkpoint read by a
                       single-device load_checkpoint equal to every rank's
                       returned params;
-15. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
+16. formats-2m      — data/trained_2m.gsz (1,999,994 splats) through the
                       port's load_scene onto the card (load timed); 10
                       frames of an orbit at 1920×1080 through
                       render_frame (median frame ms, instances, the
@@ -161,7 +176,7 @@ its elapsed seconds:
                       and .splat (save and load timed), each reload's
                       first frame scored against the original's: q16
                       > 55 dB, .splat > 35 dB at SH degree 0, q8 printed;
-16. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
+17. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
                       from 12 orbit views of data/trained_surface_100k.gsz
                       at 1280×720 and a points3D cloud of 20,000 of its
                       positions and DC colours (read by the native reader
@@ -174,14 +189,14 @@ its elapsed seconds:
                       overflow_views 0); apps/edit to a pruned .gsz
                       (--min-opacity 0.005) and apps/eval of it; each
                       app's wall time and the kernels' launches in them;
-17. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
+18. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
                       views) and transforms_test.json (4) with RGBA PNGs
                       of the same scene at 800×800 (alpha from the
                       render's alpha row, camera_angle_x); apps/fit
                       refining the scene (--init, --background white, 40
                       steps) and apps/eval of the test split over white
                       (exit 0, finite PSNR);
-18. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
+19. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
                       with a prewarm (its thread ends without an error)
                       and data/trained_2m.gsz loaded by load_gaussians
                       at formats-2m's pose; its frame bit-equal to
@@ -210,10 +225,10 @@ its elapsed seconds:
                       (step 20 of 20, a PNG of the dataset's size);
                       the compositor's launches equal to the frames,
                       the train kernels' calls counted;
-19. train-bench-shape
+20. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-20. gemm            — the GEMM harness: the port's apps/matrix_test at
+21. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel (``sm90``), and at the odd
                       N = 1001, served by the ``wmma`` kernel (exit 0: the
@@ -226,7 +241,7 @@ its elapsed seconds:
                       differing (row, col); each kernel's ms beside its
                       plain version's, torch.mm's and its bound, TFLOP/s,
                       launches per kernel;
-21. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+22. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -234,13 +249,14 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-22. sort-harness    — the port's apps/onesweep and apps/radix_test with
+23. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
 
-Then one JSON line of per-kernel numbers (eight kernels: the GEMM's two,
-and the segment sum, which replaces no TPU kernel), the card line
+Then one JSON line of per-kernel numbers (nine kernels: the GEMM's two,
+and the segment sum and the densify draw, which replace no TPU kernel),
+the card line
 again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero without the ok line. Logs go
 to stderr.
@@ -349,6 +365,21 @@ FIT_STEPS = 60
 FIT_DENSIFY_EVERY = 20
 FIT_CHECKPOINT_EVERY = 30
 FIT_TIMED_STEPS = 10
+#: The densify draw (ops/cuda/prng.py): normals within this many f32 ulp
+#: of the plain version's (the CPU's or the card's log1p under XLA's
+#: erf_inv polynomial).
+PRNG_MAX_ULP = 4
+#: Least float operations of one normal: the uniform's subtract,
+#: multiply, add and max (4); erf_inv's square, log1p, compare, offset,
+#: 8 fused multiply-adds (16) and the products by u and √2 (22).
+#: threefry2x32's some 73 integer operations a value are not charged.
+PRNG_FLOPS_PER_VALUE = 4 + 22
+#: Launches in one back-to-back timing of the draw kernel.
+PRNG_BURST = 100
+#: One episode on the card against the CPU: positions and raw_scales
+#: within this of 1 + |value| (a few ulp of the normals and of each
+#: device's quaternion norm and log).
+DRAW_EPISODE_REL = 1e-5
 #: The fit-app dataset: views on the training orbit, 640×480 .npy targets.
 FIT_APP_VIEWS = 8
 #: fp32 operations per (in-image pixel, walked lane) pair of the train
@@ -1980,6 +2011,28 @@ def fit_dir(name):
     return path
 
 
+def tree_to(torch, x, dev):
+    """A copy of nested tuples and dicts of tensors and Nones, every
+    tensor moved to ``dev`` (``None``: cloned on its own device)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.clone() if dev is None else x.to(dev)
+    if isinstance(x, dict):
+        return {k: tree_to(torch, v, dev) for k, v in x.items()}
+    items = [tree_to(torch, v, dev) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def episode_prune_scale(cams):
+    """``fit_scene``'s size prune for these views: 0.1 of the cameras'
+    spread (the farthest camera from their mean)."""
+    import numpy as np
+
+    cam_pos = np.stack([c.position.cpu().numpy() for c in cams])
+    return 0.1 * float(np.linalg.norm(cam_pos - cam_pos.mean(axis=0), axis=1).max())
+
+
 def phase_fit(torch, gt, scene, card):
     """The fit main path at full width: fit_scene on data/trained_500k.ply
     at 640×480 over the train-500k views (targets the file's own renders)
@@ -1993,10 +2046,9 @@ def phase_fit(torch, gt, scene, card):
     against the plain step in turns, and one densify_step episode (with
     no host wait: sync debug mode)."""
     from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import prng
     from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
-
-    import numpy as np
 
     cfg = train_500k_config(gt)
     cams = train_poses(gt, cfg)
@@ -2019,6 +2071,7 @@ def phase_fit(torch, gt, scene, card):
         at_checkpoint.setdefault(step, params)
 
     tt.train_forward.launches = tt.train_backward.launches = seg.segment_sum.launches = 0
+    prng.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fitted, hist = gt.fit_scene(views, cfg, start, optimizer=optimizer(), checkpoint_dir=ck,
@@ -2028,7 +2081,8 @@ def phase_fit(torch, gt, scene, card):
     fit_ms = (time.perf_counter() - t0) * 1e3
     fit_launches = {"tile_train_fwd": tt.train_forward.launches,
                     "tile_train_bwd": tt.train_backward.launches,
-                    "segment_sum": seg.segment_sum.launches}
+                    "segment_sum": seg.segment_sum.launches,
+                    "prng": prng.launches}
     t0 = time.perf_counter()
     report = gt.evaluate(fitted, views, cfg)
     evaluate_ms = (time.perf_counter() - t0) * 1e3
@@ -2041,7 +2095,22 @@ def phase_fit(torch, gt, scene, card):
     resume_dir = os.path.join(ck, f"step_{FIT_CHECKPOINT_EVERY:06d}")
     restored, _, _, _ = gt.load_checkpoint(resume_dir, start)
     restored_equal = params_bit_equal(torch, at_checkpoint[FIT_CHECKPOINT_EVERY], restored)
-    again, hist_a = gt.fit_scene(views, cfg, start, optimizer=optimizer(), **kw)
+    # The repeat keeps its first episode's inputs for densify-draw (the
+    # timed fit above runs without the copy).
+    first_episode = {}
+    real_densify_step = ptrain.densify_step
+
+    def keep_first_episode(params, opt_state, dstate, **ekw):
+        if not first_episode:
+            first_episode.update(state=tree_to(torch, (params, opt_state, dstate), None),
+                                 kwargs=ekw)
+        return real_densify_step(params, opt_state, dstate, **ekw)
+
+    ptrain.densify_step = keep_first_episode
+    try:
+        again, hist_a = gt.fit_scene(views, cfg, start, optimizer=optimizer(), **kw)
+    finally:
+        ptrain.densify_step = real_densify_step
     resumed, hist_r = gt.fit_scene(views, cfg, start, optimizer=optimizer(),
                                    resume_from=resume_dir, **kw)
     later = [e for e in episodes if e["step"] > FIT_CHECKPOINT_EVERY]
@@ -2068,8 +2137,7 @@ def phase_fit(torch, gt, scene, card):
         d_ms.append(ms)
         (pp, pst, _), ms = host_ms(torch, lambda: pstep(pp, pst, *view))
         p_ms.append(ms)
-    cam_pos = np.stack([c.position.cpu().numpy() for c in cams])
-    prune = 0.1 * float(np.linalg.norm(cam_pos - cam_pos.mean(axis=0), axis=1).max())
+    prune = episode_prune_scale(cams)
 
     def episode():
         return gt.densify_step(dp, dst, ds, seed=1, prune_scale=prune)
@@ -2125,8 +2193,11 @@ def phase_fit(torch, gt, scene, card):
               for p, p0 in zip(fitted, start) if p is not None),
           "fit-500k: a finite parameter became non-finite")
     check(fit_launches == {"tile_train_fwd": FIT_STEPS, "tile_train_bwd": FIT_STEPS,
-                           "segment_sum": FIT_STEPS},
-          f"fit-500k: train kernel calls {fit_launches} in {FIT_STEPS} steps")
+                           "segment_sum": FIT_STEPS, "prng": len(episodes)},
+          f"fit-500k: kernel calls {fit_launches} in {FIT_STEPS} steps, "
+          f"{len(episodes)} episodes")
+    check(first_episode.get("kwargs", {}).get("seed") == FIT_DENSIFY_EVERY,
+          f"fit-500k: first episode's inputs {first_episode.get('kwargs')}")
     check(eval_launches == {"tile_train_fwd": len(views), "tile_train_bwd": 0},
           f"fit-500k: evaluate's train kernel calls {eval_launches}")
     check(report["psnr"] > psnr_start,
@@ -2142,6 +2213,175 @@ def phase_fit(torch, gt, scene, card):
           f"fit-500k: the resume from step {FIT_CHECKPOINT_EVERY} differs from the fit: "
           f"{resume} (losses {hist_r['losses']}, episodes {hist_r['densify']})")
     check(not syncs, f"fit-500k: densify_step waits for the device: {syncs}")
+    return res, first_episode
+
+
+def prng_bound_ms(values, out_bytes):
+    """(ms, "bytes" or "operations"): the least time of one draw of
+    ``values`` on an H100, the larger of its output written once over the
+    HBM peak (it reads nothing) and its float operations over the fp32
+    peak (PRNG_FLOPS_PER_VALUE a value; the data sheet gives no rate for
+    threefry's integer operations, so they are not charged)."""
+    bytes_s = values * out_bytes / PEAK_HBM_BYTES
+    ops_s = values * PRNG_FLOPS_PER_VALUE / PEAK_FP32_FLOPS
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
+
+
+def back_to_back_ms(torch, prng, seed, out):
+    """CUDA-event ms a launch of PRNG_BURST normal draws into ``out``
+    enqueued back to back through the C entry point (no allocation, no
+    wrapper), so the card, not the host, sets the pace: the kernel's
+    time with the gaps between launches."""
+    from gaussianrenderer_tpu_torch import _build
+
+    lib = _build.load("prng")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+
+    def burst():
+        for _ in range(PRNG_BURST):
+            check(lib.gr_prng(seed & 0xFFFFFFFF, out.numel(), 2, out.data_ptr(), stream) == 0,
+                  "densify-draw: a back-to-back launch failed")
+
+    return cuda_ms(torch, burst, 3) / PRNG_BURST
+
+
+def rel_gap(torch, a, b):
+    """max |a - b| / (1 + |b|) over the entries finite in both tensors;
+    inf unless both hold NaN at the same places (data/trained_500k.ply
+    has three splats with NaN parameters)."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return math.inf
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float(((a - b).abs() / (1.0 + b.abs()))[ok].max())
+
+
+def phase_densify_draw(torch, gt, n, first_episode, card):
+    """The densify draw (``ops/cuda/prng.py``): the kernel at train-500k's
+    (n, 3) against its plain version on the card and on the CPU (bits
+    and uniforms bit for bit, normals within PRNG_MAX_ULP, the values
+    that differ counted), two launches bit-equal, the bf16 draw of the
+    GEMM harness against its plain version; the kernel's ms (the
+    wrapper's call, the profiler's device time, a launch of a
+    back-to-back burst) beside the plain version's, ``torch.randn``'s
+    (the draw before this kernel: other samples) and the bound, and at
+    the GEMM's 8192² in f32 and bf16. Then fit-500k's first
+    episode from its inputs, on the card and on the CPU: counts, the
+    recycled slots and their donors equal (read off a ``time_params``
+    tag of each row's index, which the episode copies from the donor),
+    positions and ``raw_scales`` (a split adds each device's log(1/1.6))
+    within DRAW_EPISODE_REL of 1 + |value|, the rows not refilled
+    bit-equal, every other leaf and moment bit-equal."""
+    from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import prng
+
+    seed, shape = FIT_DENSIFY_EVERY, (n, 3)
+    dev = torch.device(DEVICE)
+    bits, bits_plain = prng.random_bits(seed, shape, dev), prng.random_bits_plain(seed, shape, dev)
+    u, u_plain = prng.uniform(seed, shape, dev), prng.uniform_plain(seed, shape, dev)
+    eps, again = prng.normal(seed, shape, dev), prng.normal(seed, shape, dev)
+    eps_plain = prng.normal_plain(seed, shape, dev)
+    eps_cpu = prng.normal_plain(seed, shape)
+    differ_plain, ulp_plain = ulp_diff(torch, eps, eps_plain)
+    differ_cpu, ulp_cpu = ulp_diff(torch, eps.cpu(), eps_cpu)
+    gn = (GEMM_N, GEMM_N)
+    g16 = prng.normal(0, gn, dev, torch.bfloat16)
+    g16_plain = prng.normal_plain(0, gn, dev, torch.bfloat16)
+    g16_differ = int((g16.view(torch.int16) != g16_plain.view(torch.int16)).sum())
+    g16_max_rel = float(((g16.float() - g16_plain.float()).abs()
+                         / g16_plain.float().abs().clamp_min(1e-30)).max())
+    del g16, g16_plain
+
+    def randn():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    draw = {
+        "shape": list(shape), "seed": seed,
+        "bits_bit_equal_to_plain": bool(torch.equal(bits, bits_plain)),
+        "bits_bit_equal_to_cpu": bool(torch.equal(bits.cpu(), prng.random_bits_plain(seed, shape))),
+        "uniform_bit_equal_to_plain": same_bits(torch, u, u_plain),
+        "uniform_bit_equal_to_cpu": same_bits(torch, u.cpu(), prng.uniform_plain(seed, shape)),
+        "normal_ulp_max_vs_plain": ulp_plain, "normal_values_differing_vs_plain": differ_plain,
+        "normal_ulp_max_vs_cpu": ulp_cpu, "normal_values_differing_vs_cpu": differ_cpu,
+        "two_launches_bit_equal": same_bits(torch, eps, again),
+        "max_abs_err": float((eps - eps_plain).abs().max()),
+        "max_abs_err_vs_cpu": float((eps.cpu() - eps_cpu).abs().max()),
+        "bf16_shape": list(gn), "bf16_values_differing_vs_plain": g16_differ,
+        "bf16_max_rel_vs_plain": g16_max_rel,
+        "ms": cuda_ms(torch, lambda: prng.normal(seed, shape, dev), 20),
+        "device_ms": pass_ms(torch, lambda: prng.normal(seed, shape, dev), reps=10),
+        "plain_ms": cuda_ms(torch, lambda: prng.normal_plain(seed, shape, dev), 3),
+        "torch_randn_ms": cuda_ms(torch, randn, 20),
+        "torch_randn_is": "the draw before this kernel (a seeded Philox Generator): "
+                          "other samples, so no library_ms",
+        "bound_flops_per_value": PRNG_FLOPS_PER_VALUE,
+        "back_to_back_ms": back_to_back_ms(torch, prng, seed, eps),
+        "bf16_ms": cuda_ms(torch, lambda: prng.normal(0, gn, dev, torch.bfloat16), 5),
+        "bf16_bound_ms": prng_bound_ms(gn[0] * gn[1], 2)[0],
+        "f32_at_bf16_shape_ms": cuda_ms(torch, lambda: prng.normal(0, gn, dev), 5),
+        "f32_at_bf16_shape_bound_ms": prng_bound_ms(gn[0] * gn[1], 4)[0],
+    }
+    draw["bound_ms"], draw["bound_by"] = prng_bound_ms(n * 3, 4)
+    draw["back_to_back_launches"] = PRNG_BURST
+    del bits, bits_plain, u, u_plain, eps, again, eps_plain, eps_cpu
+
+    # fit-500k's first episode on both devices, each row tagged with its
+    # index in time_params (copied from the donor into a refilled slot).
+    params, opt_state, dstate = first_episode["state"]
+    tag = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    params = params._replace(time_params=tag)
+    kw = first_episode["kwargs"]
+    out_card = ptrain.densify_step(params, opt_state, dstate, **kw)
+    torch.cuda.synchronize()
+    cpu_in = tree_to(torch, (params, opt_state, dstate), "cpu")
+    t0 = time.perf_counter()
+    out_cpu = ptrain.densify_step(*cpu_in, **kw)
+    cpu_s = time.perf_counter() - t0
+    (pc, oc, _, ic), (pp, op, _, ip) = tree_to(torch, out_card, "cpu"), out_cpu
+    info_card = {k: int(v) for k, v in ic.items()}
+    info_cpu = {k: int(v) for k, v in ip.items()}
+    tag_cpu = tag.cpu()
+    refill_card = (pc.time_params != tag_cpu)[:, 0]
+    refill_cpu = (pp.time_params != tag_cpu)[:, 0]
+    donors_equal = bool(torch.equal(refill_card, refill_cpu)) and bool(torch.equal(
+        pc.time_params[refill_card], pp.time_params[refill_cpu]))
+    pos_rel = rel_gap(torch, pc.positions, pp.positions)
+    leaves_equal = {f: same_bits(torch, getattr(pc, f), getattr(pp, f))
+                    for f in ("sh", "raw_opacity", "quats")}
+    moments_equal = all(same_bits(torch, a, b)
+                        for m_c, m_p in ((oc.mu, op.mu), (oc.nu, op.nu))
+                        for a, b in zip(m_c, m_p) if a is not None)
+    scales_rel = rel_gap(torch, pc.raw_scales, pp.raw_scales)
+    episode = {
+        "from": f"fit-500k's first episode (step {kw['seed']}, the fit run again)",
+        "kwargs": kw, "info_card": info_card, "info_cpu": info_cpu,
+        "slots_refilled": int(refill_card.sum()),
+        "refill_and_donors_equal": donors_equal,
+        "positions_max_rel": pos_rel,
+        "positions_untouched_bit_equal": same_bits(
+            torch, pc.positions[~refill_card], pp.positions[~refill_cpu])
+        if bool(torch.equal(refill_card, refill_cpu)) else False,
+        "leaves_bit_equal": leaves_equal, "moments_bit_equal": moments_equal,
+        "raw_scales_max_rel": scales_rel, "cpu_episode_s": cpu_s,
+    }
+    res = {"densify_draw": draw, "episode_card_vs_cpu": episode, "card": card}
+    out(res)
+    for key in ("bits_bit_equal_to_plain", "bits_bit_equal_to_cpu", "uniform_bit_equal_to_plain",
+                "uniform_bit_equal_to_cpu", "two_launches_bit_equal"):
+        check(draw[key], f"densify-draw: {key} is false")
+    check(ulp_plain <= PRNG_MAX_ULP and ulp_cpu <= PRNG_MAX_ULP,
+          f"densify-draw: normals {ulp_plain} / {ulp_cpu} ulp from the plain draw on the "
+          "card / the CPU")
+    check(g16_max_rel <= 2.0**-7, f"densify-draw: bf16 draw {g16_max_rel:.3g} from its plain version")
+    check(info_card == info_cpu and info_card["recycled"] > 0,
+          f"densify-draw: episode counts card {info_card}, CPU {info_cpu}")
+    check(donors_equal, "densify-draw: the episode refills other slots or donors on the card")
+    check(pos_rel <= DRAW_EPISODE_REL and episode["positions_untouched_bit_equal"],
+          f"densify-draw: positions {pos_rel:.3g} apart (relative to 1 + |p|)")
+    check(all(leaves_equal.values()) and moments_equal and scales_rel <= DRAW_EPISODE_REL,
+          f"densify-draw: leaves {leaves_equal}, moments {moments_equal}, "
+          f"raw_scales {scales_rel:.3g}")
     return res
 
 
@@ -3230,6 +3470,7 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     it must take; each kernel's, its plain version's and ``torch.mm``'s
     times."""
     from gaussianrenderer_tpu_torch.apps import matrix_test
+    from gaussianrenderer_tpu_torch.ops.cuda import prng
     from gaussianrenderer_tpu_torch.ops.cuda.matmul import gemm_kernel, matmul_blocked_plain
 
     mm = gt.matmul_blocked
@@ -3241,6 +3482,7 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     odd_blocks = [f"--{k}={v}" for k, v in okw.items()]
     runs = {}
     launches = {"sm90": 0, "wmma": 0}
+    prng_before = prng.launches
     for label, argv, kernel in (
         ("random", ["--n", str(n)] + blocks, "sm90"),
         ("ones", ["--n", str(n), "--ones"] + blocks, "sm90"),
@@ -3258,10 +3500,12 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
                        "launches": served}
         for k in launches:
             launches[k] += served[k]
+    # Two bf16 draws in each of the two random runs.
+    prng_launches = prng.launches - prng_before
+    check(prng_launches == 4, f"matrix_test: {prng_launches} draw launches in two random runs")
 
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    a = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
-    b = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    # matrix_test's random inputs: JAX's normal(PRNGKey(0)) for both.
+    a = b = prng.normal(0, (n, n), DEVICE, torch.bfloat16)
     check(gemm_kernel(a, b) == "sm90", f"gemm {n}^3 would not take the sm90 kernel")
     random_case, want = gemm_case(torch, mm, f"gemm {n}^3 random", a, b, kw)
     lib = torch.mm(a, b, out_dtype=torch.float32)
@@ -3319,9 +3563,7 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
 
     # The wmma kernel at matrix_test's odd shape.
     no = GEMM_ODD_N
-    g = torch.Generator(device=DEVICE).manual_seed(no)
-    oa = torch.randn((no, no), generator=g, dtype=torch.bfloat16, device=DEVICE)
-    ob = torch.randn((no, no), generator=g, dtype=torch.bfloat16, device=DEVICE)
+    oa = ob = prng.normal(0, (no, no), DEVICE, torch.bfloat16)
     case, _ = gemm_case(torch, mm, f"gemm {no}^3 random, blocks {GEMM_ODD_BLOCK}", oa, ob, okw)
     out(case)
     check_gemm_case(case, "wmma")
@@ -3339,7 +3581,7 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "matrix_test": {k: v["times"] for k, v in runs.items()},
-        "launches": launches, "wmma": wmma, "card": card}}
+        "launches": launches, "prng_launches": prng_launches, "wmma": wmma, "card": card}}
     out(res)
     res = res["gemm_times"]
     res["max_abs_err"] = max_err
@@ -3814,7 +4056,8 @@ def train_times(root) -> int:
     package of the checkout at ROOT (this checkout's data and harness):
     TRAIN_STEPS synchronized train-500k steps (host clock), a FIT_STEPS
     fit-500k fit without checkpoints (wall ms a step, one synchronize at
-    its end), and the backward train kernel on the first step's inputs
+    its end), one densify episode after FIT_TIMED_STEPS densifying steps
+    (CUDA events, median of 5, as fit-500k times it), and the backward train kernel on the first step's inputs
     (CUDA events) with each of its passes' device ms (torch.profiler).
     Prints one ``{"train_times": ...}`` line."""
     import torch
@@ -3825,6 +4068,7 @@ def train_times(root) -> int:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import gaussianrenderer_tpu_torch as gt
+    from gaussianrenderer_tpu_torch import train as ptrain
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     check(os.path.dirname(os.path.dirname(os.path.abspath(gt.__file__))) == root,
@@ -3857,6 +4101,16 @@ def train_times(root) -> int:
                            densify_stop=0.7)
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    # One densify episode from FIT_TIMED_STEPS densifying steps, as fit-500k times it.
+    dopt = gt.make_3dgs_optimizer()
+    dstep = ptrain._make_step_fn(cfg, dopt, gt.l1_dssim_loss, timed=False, densify=True)
+    dp, dst = params0, dopt.init(params0)
+    ds = gt.DensifyState.zero(params0.positions.shape[0], device=DEVICE)
+    for s in range(FIT_TIMED_STEPS):
+        dp, dst, ds, _, _ = dstep(dp, dst, ds, *views[s % len(views)])
+    prune = episode_prune_scale(cams)
+    episode_ms = cuda_ms(torch, lambda: gt.densify_step(dp, dst, ds, seed=1, prune_scale=prune), 5)
+    del dp, dst, ds
     with torch.no_grad():
         sf, asg = train_inputs(gt, params0, cams[0], cfg)
     kw = train_kw(cfg)
@@ -3871,6 +4125,7 @@ def train_times(root) -> int:
         "package": root, "card": card_line(),
         "step_ms_median": statistics.median(step_ms), "step_ms_all": step_ms,
         "losses": losses, "fit_ms_per_step": fit_ms, "fit_losses": hist["losses"],
+        "episode_ms_median_of_5": episode_ms,
         "fit_episodes": hist["densify"], "bwd_ms": cuda_ms(torch, bwd, 10),
         "bwd_pass_device_ms": pass_ms(torch, bwd, reps=10),
         "instances": int(asg.total_instances), "checkpoint_rows": n_chk,
@@ -3905,6 +4160,7 @@ def train_turns(parent) -> int:
     out({"train_turns": {
         "order": [r["label"] for r in runs], "card": card_line(),
         "step_ms_median": side("step_ms_median"), "fit_ms_per_step": side("fit_ms_per_step"),
+        "episode_ms_median_of_5": side("episode_ms_median_of_5"),
         "bwd_ms": side("bwd_ms"),
         "bwd_grads_pass_device_ms": {lab: [grads_pass(r) for r in runs if r["label"] == lab]
                                      for lab in ("parent", "change")},
@@ -4033,7 +4289,12 @@ def main() -> int:
         train_res = phase_train(torch, gt, scene500, card)
 
     with Phase("fit-500k", torch):
-        fit_res = phase_fit(torch, gt, scene500, card)
+        fit_res, first_episode = phase_fit(torch, gt, scene500, card)
+
+    with Phase("densify-draw", torch):
+        draw_res = phase_densify_draw(torch, gt, scene500.num_gaussians, first_episode, card)
+    del first_episode
+    torch.cuda.empty_cache()
 
     with Phase("fit-app", torch):
         fit_app_res = phase_fit_app(torch, gt, scene500, card)
@@ -4183,6 +4444,28 @@ def main() -> int:
         "library_call": train_times["segment_sum"]["library_call"],
         "shape": (f"{train_times['segment_sum']['rows']} rows of 16 f32 into "
                   f"{train_times['segment_sum']['segments']} splats (train-500k first step)"),
+    }, {
+        "name": "prng",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/prng.cu",
+        "replaces": "gaussianrenderer_tpu/train.py:809",
+        "replaces_note": ("no TPU kernel: the JAX package's densify draw, "
+                          "jax.random.normal(PRNGKey(seed), (n, 3)), is XLA's elementwise "
+                          "threefry2x32, uniform and erf_inv"),
+        "launches": fit_res["train_kernel_calls_fit"]["prng"],
+        "launches_by_phase": {"fit-500k": fit_res["train_kernel_calls_fit"]["prng"],
+                              "gemm (apps/matrix_test's bf16 inputs)": gemm_res["prng_launches"]},
+        "max_abs_err": draw_res["densify_draw"]["max_abs_err"],
+        "normal_ulp_max_vs_plain": draw_res["densify_draw"]["normal_ulp_max_vs_plain"],
+        "ms": draw_res["densify_draw"]["ms"],
+        "device_ms": draw_res["densify_draw"]["device_ms"],
+        "back_to_back_ms": draw_res["densify_draw"]["back_to_back_ms"],
+        "plain_ms": draw_res["densify_draw"]["plain_ms"],
+        "bound_ms": draw_res["densify_draw"]["bound_ms"],
+        "bound_by": draw_res["densify_draw"]["bound_by"],
+        "library_ms": None,
+        "torch_randn_ms": draw_res["densify_draw"]["torch_randn_ms"],
+        "shape": f"{tuple(draw_res['densify_draw']['shape'])} f32 normals (fit-500k's episodes)",
     }] + [{
         "name": "matmul_sm90",
         "route": "cuda",

@@ -40,7 +40,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 NATIVE_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_native")
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
-SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort", "segment_sum")
+SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort", "segment_sum",
+           "prng")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -87,6 +88,13 @@ _SIGNATURES = {
             _c_int,
             [_c_void_p, _c_int, _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p,
              _c_void_p],
+        ),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "prng": {
+        # (key word k1, n, mode, out, stream)
+        "gr_prng": (
+            _c_int, [ctypes.c_uint, ctypes.c_longlong, _c_int, _c_void_p, _c_void_p],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

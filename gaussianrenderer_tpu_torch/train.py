@@ -48,6 +48,7 @@ import torch
 from gaussianrenderer_tpu_torch._device import resolve_device
 from gaussianrenderer_tpu_torch.config import RenderConfig
 from gaussianrenderer_tpu_torch.ops.projection import preprocess_gaussians, slice_spacetime
+from gaussianrenderer_tpu_torch.ops.cuda import prng
 from gaussianrenderer_tpu_torch.render import _render_impl
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
@@ -584,13 +585,13 @@ def accumulate_densify_stats(state: DensifyState, view_grads: torch.Tensor,
 
 
 def _densify_eps(seed: int, n: int, device) -> torch.Tensor:
-    """The (n, 3) standard-normal sample offsets of a densify episode,
-    from a ``torch.Generator`` on ``device`` seeded with ``seed``. The
-    JAX package draws ``jax.random.normal(PRNGKey(seed))``, which this
-    does not reproduce: the same seed gives other samples."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return torch.randn((n, 3), generator=gen, device=device, dtype=torch.float32)
+    """The (n, 3) standard-normal sample offsets of a densify episode:
+    the JAX package's draw, ``jax.random.normal(PRNGKey(seed), (n, 3),
+    float32)``, on ``device`` (``ops/cuda/prng.py``: its kernel on CUDA,
+    its plain version on the CPU). The bits and uniforms are JAX's bit for
+    bit and the normals within 4 ulp, so one seed gives one episode in
+    both packages and on both devices."""
+    return prng.normal(seed, (n, 3), device)
 
 
 def _nanquantile(x: torch.Tensor, q: float) -> torch.Tensor:

@@ -13,14 +13,15 @@ Gates:
   the loss within 1e-5 relative; the parameters bit-equal to the
   non-densifying step's;
 - ``densify_step`` with ``_densify_eps`` replaced by JAX's
-  ``jax.random.normal(PRNGKey(seed))`` draw: refill mask (the rows whose
+  ``jax.random.normal(PRNGKey(seed))`` draw itself, so that only the
+  episode's own arithmetic is compared: refill mask (the rows whose
   all-ones Adam moments were zeroed), ``recycled``/``dead``/``eligible``
   and the moment resets exactly equal, every parameter within 1e-6
-  absolute;
+  absolute (the port's own draw is JAX's within 4 ulp; the same episodes
+  with nothing replaced are in tests/test_torch_prng.py);
 - the split quantile bit-equal to ``jnp.nanquantile``.
-The port's own generator is held to the JAX tests' properties instead:
-refills near their donors, survivors untouched, and one seed giving one
-episode.
+The port's own draw is also held to the JAX tests' properties: refills
+near their donors, survivors untouched, and one seed giving one episode.
 """
 
 import jax
@@ -254,9 +255,9 @@ def test_split_quantile_matches_jnp_nanquantile(case):
         np.testing.assert_array_equal(got, want)
 
 
-# ------------------------------------------------- the port's own generator
+# ------------------------------------------------------ the port's own draw
 def test_densify_refills_donor_neighbourhoods():
-    """tests/test_train.py's densify properties with the port's own noise:
+    """tests/test_train.py's densify properties with the port's own draw:
     every dead slot refilled within 5σ of a hot donor, survivors
     untouched, stats reset, no low-opacity splat left."""
     n, n_dead, n_hot = 64, 10, 6

@@ -4,7 +4,9 @@ package's on the CPU, and the loop's cadences on the port alone.
 Gates:
 - against JAX's ``fit_scene`` from the same start (2 views, Adam 1e-2,
   12 steps, an episode every 4 steps, an opacity reset at 7, the scan
-  compositor on both sides, ``_densify_eps`` replaced by JAX's draw):
+  compositor on both sides, ``_densify_eps`` replaced by JAX's draw
+  itself; the port's own draw, JAX's within 4 ulp, runs the same fit in
+  tests/test_torch_prng.py):
   episode records equal and every step's loss within 1e-3 relative. The
   test asserts that no splat's score at an episode lies within 1% of the
   2e-4 threshold, so that float differences cannot flip a donor (the
