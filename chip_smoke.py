@@ -2,7 +2,8 @@
 """GPU smoke run of the PyTorch/CUDA port (``gaussianrenderer_tpu_torch``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --train-turns PARENT_CHECKOUT   (see train_turns)
+    python3 chip_smoke.py --train-turns PARENT_CHECKOUT [--same-bits]
+                                                         (see train_turns)
 
 Needs one CUDA card and the CUDA toolkit (nvcc); builds the port's CUDA
 kernels from the sources in this checkout into build/torch_kernels/.
@@ -97,10 +98,15 @@ its elapsed seconds:
                       for bit equal; kernel, plain and bound ms,
                       each pass's device ms (torch.profiler) and the
                       kernel launches of one call; the segment sum (the
-                      gather's transpose) on that step's gradient rows:
-                      bit-equal to its plain version, to the CPU's
-                      index_add_ and across two launches, its ms beside
-                      the plain version's, one index_add_'s and its bound;
+                      gather's transpose) on that step's gradient rows,
+                      by the backward's own call on the assignment's
+                      segments (no sort; the segments equal to the
+                      stable argsort's) and by the argsort route: the
+                      two bit-equal to each other, to the plain version,
+                      to the CPU's index_add_ and across two launches;
+                      both calls' ms in turns with one index_add_'s, the
+                      kernel's device ms, the plain version's and the
+                      bound;
 11. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
@@ -230,17 +236,21 @@ its elapsed seconds:
                       random splats, 800×800, Adam 1e-2, MSE).
 21. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
-                      by the wgmma + TMA kernel (``sm90``), and at the odd
-                      N = 1001, served by the ``wmma`` kernel (exit 0: the
+                      by the wgmma + TMA kernel straight from the inputs
+                      (``sm90``), and at the odd N = 1001, served by the
+                      ``packed`` route (a pack kernel, then the same
+                      product kernel on the padded copies; exit 0: the
                       kernel within 1e-2 of torch.mm, out[0, 0] == N on
                       ones); the kernel within GEMM_MAX_REL of its plain
                       version at 8192³, every entry N on ones, and on the
-                      edge shapes (one for each kernel) and a 16-byte-
-                      misaligned input (``wmma``), each case with the
-                      kernel that served it and, on a mismatch, the first
-                      differing (row, col); each kernel's ms beside its
-                      plain version's, torch.mm's and its bound, TFLOP/s,
-                      launches per kernel;
+                      edge shapes (both routes, both tile widths) and a
+                      16-byte-misaligned input (``packed``), each case
+                      with the route that served it and, on a mismatch,
+                      the first differing (row, col); each route's ms
+                      beside its plain version's, torch.mm's and its
+                      bound (at 1001³ in turns with torch.mm, and each
+                      kernel's device ms by torch.profiler), TFLOP/s,
+                      launches per route;
 22. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
@@ -254,8 +264,9 @@ its elapsed seconds:
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
 
-Then one JSON line of per-kernel numbers (nine kernels: the GEMM's two,
-and the segment sum and the densify draw, which replace no TPU kernel),
+Then one JSON line of per-kernel numbers (nine kernels: the GEMM's two
+routes, and the segment sum and the densify draw, which replace no TPU
+kernel),
 the card line
 again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero without the ok line. Logs go
@@ -266,6 +277,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -407,16 +419,18 @@ GEMM_N = 8192
 #: the plain version, as far as torch.mm's own tensor-core product (both
 #: printed); the gate is twice that.
 GEMM_MAX_REL = 2e-5
-#: (M, K, N, block, kernel): an edge shape no 128-tile divides, with
-#: 8-blocks, which the sm90 kernel takes through TMA's zero fill; an odd
-#: shape with 1-blocks, whose K and N TMA cannot describe (the wmma
-#: kernel's element-wise load path).
-GEMM_EDGE_SHAPES = ((264, 136, 328, 8, "sm90"), (37, 13, 29, 1, "wmma"))
+#: (M, K, N, block, route): an edge shape no 128-tile divides, with
+#: 8-blocks, which the sm90 route takes through TMA's zero fill (128×64
+#: tiles); an odd shape with 1-blocks, smaller than one tile, whose K and
+#: N TMA cannot describe (the packed route); an odd shape large enough
+#: for 128×256 tiles through the packed route.
+GEMM_EDGE_SHAPES = ((264, 136, 328, 8, "sm90"), (37, 13, 29, 1, "packed"),
+                    (2049, 1001, 4097, 1, "packed"))
 #: (M, K, N, block) of the misaligned case: A starts 2 bytes into its
-#: storage, so TMA cannot take it and the wmma kernel serves it.
+#: storage, so TMA cannot take it and the packed route serves it.
 GEMM_MISALIGNED = (264, 136, 328, 8)
 #: matrix_test's odd run (N and its 7-blocks not multiples of 8): the
-#: harness path through the wmma kernel.
+#: harness path through the packed route.
 GEMM_ODD_N, GEMM_ODD_BLOCK = 1001, 7
 #: The block sort at the render path's instance count: bench_3m's
 #: 5,585,012 instances rounded up to the default run of 2048.
@@ -1689,50 +1703,80 @@ def pass_ms(torch, fn, reps=5):
     return by_name
 
 
-def segment_sum_bound_ms(rows, ids, n):
-    """Least time of one segment sum on an H100: bytes (the rows and their
-    int64 ids read once, the (n, D) sums written once) over the HBM peak;
+def segment_sum_bound_ms(m, d, n):
+    """Least time of one segment sum of ``m`` rows of ``d`` f32 into ``n``
+    segments on an H100, as the training gather's transpose calls it:
+    bytes (the rows and their int32 order read once, the n + 1 int32
+    offsets read once, the (n, D) sums written once) over the HBM peak;
     its one add per element read is far below the fp32 peak."""
-    n_bytes = rows.numel() * 4 + ids.numel() * 8 + n * rows.shape[1] * 4
+    n_bytes = m * d * 4 + m * 4 + (n + 1) * 4 + n * d * 4
     return n_bytes / PEAK_HBM_BYTES * 1e3
 
 
-def phase_segment_sum(torch, rows, ids, n):
+def phase_segment_sum(torch, rows, ids, n, slot, start):
     """The segment sum (the transpose of the instance-row gather) on the
-    rows the train-500k first step's backward gives it: the kernel
-    against its plain version on the card and against the CPU's
-    index_add_ of the same rows (bit for bit: both add each splat's rows
-    in their index order), two launches bit-equal; the wrapper's
-    (argsort, search, kernel) and the kernel's device ms beside the
-    plain version's, one index_add_'s and the bound."""
+    rows the train-500k first step's backward gives it, by both routes:
+    the backward's own call on the assignment's ``segment_slot`` and
+    ``segment_start`` (no sort; the emission's segments, checked equal to
+    the stable argsort of the ids and its searched offsets) and the
+    argsort route from the ids. Both against each other, the plain
+    version on the card and the CPU's index_add_ of the same rows (bit
+    for bit: all add each splat's rows in their index order), two
+    launches bit-equal; both calls' ms in turns with one index_add_'s,
+    the kernel's device ms (torch.profiler, and a burst of 20 calls back
+    to back), the plain version's ms and the bound."""
     from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
 
-    got = seg.segment_sum(rows, ids, n)
-    again = seg.segment_sum(rows, ids, n)
-    plain = seg.segment_sum_plain(rows, ids, n)
+    order, offsets = seg.segments(ids, n)
+    segments_equal = bool(torch.equal(slot.to(torch.int64), order)
+                          and torch.equal(start.to(torch.int64), offsets))
+    del order, offsets
+    before = seg.segment_sum.launches
+    got = seg.segment_sum_ordered(rows, slot, start)
+    again = seg.segment_sum_ordered(rows, slot, start)
+    launched = seg.segment_sum.launches - before
+    argsort = seg.segment_sum(rows, ids, n)
+    plain = seg.segment_sum_ordered_plain(rows, slot, start)
     cpu = torch.zeros((n, rows.shape[1])).index_add_(0, ids.cpu(), rows.cpu())
+    ordered_call = lambda: seg.segment_sum_ordered(rows, slot, start)  # noqa: E731
+    argsort_call = lambda: seg.segment_sum(rows, ids, n)  # noqa: E731
     library = lambda: rows.new_zeros((n, rows.shape[1])).index_add_(0, ids, rows)  # noqa: E731
+    ms, argsort_ms, library_ms = cuda_ms_turns(torch, [ordered_call, argsort_call, library], 10)
     max_err = float((got - plain).abs().max())
     res = {
         "rows": rows.shape[0], "segments": n, "columns": rows.shape[1],
         "longest_segment": int(torch.bincount(ids, minlength=n).max()),
+        "emission_segments_equal_argsort": segments_equal,
+        "launches_of_two_calls": launched,
         "two_launches_bit_equal": same_bits(torch, got, again),
+        "bit_equal_to_argsort_route": same_bits(torch, got, argsort),
         "bit_equal_to_plain": same_bits(torch, got, plain),
         "bit_equal_to_cpu_index_add": same_bits(torch, got.cpu(), cpu),
+        "argsort_route_bit_equal_to_cpu_index_add": same_bits(torch, argsort.cpu(), cpu),
         "index_add_on_card_max_abs_vs_kernel": float((library() - got).abs().max()),
         "max_abs_err": max_err,
-        "ms": cuda_ms(torch, lambda: seg.segment_sum(rows, ids, n), 10),
-        "device_ms": pass_ms(torch, lambda: seg.segment_sum(rows, ids, n)),
-        "plain_ms": cuda_ms(torch, lambda: seg.segment_sum_plain(rows, ids, n), 1),
-        "library_ms": cuda_ms(torch, library, 10),
-        "bound_ms": segment_sum_bound_ms(rows, ids, n),
+        "ms": ms, "argsort_route_ms": argsort_ms, "library_ms": library_ms,
+        "no_slower_than_index_add": ms <= library_ms,
+        "timed": "CUDA events, median of 10, the three calls in turns",
+        "argsort_route_device_ms": pass_ms(torch, argsort_call),
+        # The profiler has seen no kernel in this call late in a long run
+        # (a fresh process sees it); the burst times the kernel either way.
+        "device_ms": pass_ms(torch, ordered_call) or "not measured",
+        "burst_ms": cuda_ms(torch, lambda: [ordered_call() for _ in range(20)], 3) / 20,
+        "plain_ms": cuda_ms(torch, lambda: seg.segment_sum_ordered_plain(rows, slot, start), 1),
+        "bound_ms": segment_sum_bound_ms(rows.shape[0], rows.shape[1], n),
         "bound_by": "bytes",
         "library_call": "torch.zeros((n, 16)).index_add_(0, ids, rows) (float atomics)",
     }
     out({"segment_sum": res})
+    check(segments_equal, "segment sum: the emission's segments differ from the argsort's")
+    check(launched == 2, f"segment sum: {launched} launches in two calls")
     check(res["two_launches_bit_equal"], "segment sum: two launches differ")
+    check(res["bit_equal_to_argsort_route"], "segment sum: the two routes differ")
     check(res["bit_equal_to_plain"], f"segment sum: kernel vs plain max {max_err:.3g}")
     check(res["bit_equal_to_cpu_index_add"], "segment sum: kernel vs the CPU's index_add_")
+    check(res["argsort_route_bit_equal_to_cpu_index_add"],
+          "segment sum: the argsort route vs the CPU's index_add_")
     return res
 
 
@@ -1759,7 +1803,8 @@ def phase_train_kernel_vs_plain(torch, gt, frame):
     ids = asg.gaussian_id.to(torch.int64)
     d_feats = tt.train_backward(sf, asg.tile_start, asg.tile_count, off, gout, stats, chk,
                                 **train_kw(cfg))
-    seg_res = phase_segment_sum(torch, d_feats[: ids.shape[0]].contiguous(), ids, n_splats)
+    seg_res = phase_segment_sum(torch, d_feats[: ids.shape[0]].contiguous(), ids, n_splats,
+                                asg.segment_slot, asg.segment_start)
     del d_feats
     errs = [(fwd_err, bwd_err)]
     for tiles in ((0, 0), (4, 2)):
@@ -3428,8 +3473,8 @@ def gemm_bound_ms(m, n, k):
 
 
 def gemm_counts(mm):
-    """Launches of each GEMM kernel so far, by name."""
-    return {"sm90": mm.launches_sm90, "wmma": mm.launches_wmma}
+    """Launches of each GEMM route so far, by name."""
+    return {"sm90": mm.launches_sm90, "packed": mm.launches_packed}
 
 
 def gemm_case(torch, mm, name, a, b, kw):
@@ -3462,13 +3507,13 @@ def check_gemm_case(case, kernel):
 
 def phase_gemm(torch, gt, card, n=GEMM_N):
     """The GEMM harness's path: the port's ``matrix_test`` at N on random
-    and on ones inputs, both through the sm90 kernel, and at an odd N
-    through the wmma kernel (it checks the kernel against ``torch.mm`` and
+    and on ones inputs, both through the sm90 route, and at an odd N
+    through the packed route (it checks the kernel against ``torch.mm`` and
     the ones closed form itself and exits 0 only if they hold); then the
     kernel against its plain version on the same random inputs, on ones,
-    on the edge shapes and on a misaligned input, each through the kernel
-    it must take; each kernel's, its plain version's and ``torch.mm``'s
-    times."""
+    on the edge shapes and on a misaligned input, each through the route
+    it must take; each route's, its plain version's and ``torch.mm``'s
+    times (at the odd N in turns, and the kernels' device ms)."""
     from gaussianrenderer_tpu_torch.apps import matrix_test
     from gaussianrenderer_tpu_torch.ops.cuda import prng
     from gaussianrenderer_tpu_torch.ops.cuda.matmul import gemm_kernel, matmul_blocked_plain
@@ -3481,14 +3526,14 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     okw = dict(bm=GEMM_ODD_BLOCK, bn=GEMM_ODD_BLOCK, bk=GEMM_ODD_BLOCK)
     odd_blocks = [f"--{k}={v}" for k, v in okw.items()]
     runs = {}
-    launches = {"sm90": 0, "wmma": 0}
+    launches = {"sm90": 0, "packed": 0}
     prng_before = prng.launches
     for label, argv, kernel in (
         ("random", ["--n", str(n)] + blocks, "sm90"),
         ("ones", ["--n", str(n), "--ones"] + blocks, "sm90"),
-        (f"odd {GEMM_ODD_N}", ["--n", str(GEMM_ODD_N)] + odd_blocks, "wmma"),
+        (f"odd {GEMM_ODD_N}", ["--n", str(GEMM_ODD_N)] + odd_blocks, "packed"),
     ):
-        mm.launches = mm.launches_sm90 = mm.launches_wmma = 0
+        mm.launches = mm.launches_sm90 = mm.launches_packed = 0
         rc, text = run_app(matrix_test, argv + ["--device", DEVICE])
         served = gemm_counts(mm)
         log(text.rstrip())
@@ -3522,10 +3567,10 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     out({"case": f"gemm {n}^3 ones", "kernel": [k for k, v in served_ones.items() if v],
          "all_entries_equal_n": ones_exact})
     check_gemm_case(random_case, "sm90")
-    check(served_ones == {"sm90": 1, "wmma": 0}, f"gemm {n}^3 ones: launches {served_ones}")
+    check(served_ones == {"sm90": 1, "packed": 0}, f"gemm {n}^3 ones: launches {served_ones}")
     check(ones_exact, f"gemm {n}^3 ones: an entry differs from {n}")
 
-    max_err = {"sm90": random_case["max_abs_err"], "wmma": 0.0}
+    max_err = {"sm90": random_case["max_abs_err"], "packed": 0.0}
     odd_small = {}
     for m_, k_, n_, blk, kernel in GEMM_EDGE_SHAPES:
         g = torch.Generator(device=DEVICE).manual_seed(m_)
@@ -3537,7 +3582,7 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
         out(case)
         check_gemm_case(case, kernel)
         max_err[kernel] = max(max_err[kernel], case["max_abs_err"])
-        if kernel == "wmma":
+        if m_ * k_ * n_ < 10**5:
             odd_small = {"shape": f"({m_}, {k_}) x ({k_}, {n_})",
                          "ms": cuda_ms(torch, lambda: mm(ea, eb, **ekw), 20)}
     m_, k_, n_, blk = GEMM_MISALIGNED
@@ -3550,8 +3595,8 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     case, _ = gemm_case(torch, mm, f"gemm ({m_}, {k_}) x ({k_}, {n_}), A 2 bytes off 16-byte "
                         f"alignment, blocks {blk}", ea, eb, dict(bm=blk, bn=blk, bk=blk))
     out(case)
-    check_gemm_case(case, "wmma")
-    max_err["wmma"] = max(max_err["wmma"], case["max_abs_err"])
+    check_gemm_case(case, "packed")
+    max_err["packed"] = max(max_err["packed"], case["max_abs_err"])
 
     reps = 10
     ms = cuda_ms(torch, lambda: mm(a, b, **kw), reps)
@@ -3561,19 +3606,38 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
     flops = 2.0 * n ** 3
     del a, b
 
-    # The wmma kernel at matrix_test's odd shape.
+    # The packed route at matrix_test's odd shape: two launches bit-equal,
+    # then its ms and torch.mm's in turns, both calls' device ms, a burst
+    # of back-to-back calls and the host's enqueue µs a call (one call at
+    # a time is the host's pace, not the card's).
     no = GEMM_ODD_N
     oa = ob = prng.normal(0, (no, no), DEVICE, torch.bfloat16)
     case, _ = gemm_case(torch, mm, f"gemm {no}^3 random, blocks {GEMM_ODD_BLOCK}", oa, ob, okw)
     out(case)
-    check_gemm_case(case, "wmma")
-    max_err["wmma"] = max(max_err["wmma"], case["max_abs_err"])
-    wmma_bound_ms, wmma_bound_by = gemm_bound_ms(no, no, no)
-    wmma = {"shape": f"({no}, {no}) x ({no}, {no}) bf16 -> f32, blocks {GEMM_ODD_BLOCK}",
-            "ms": cuda_ms(torch, lambda: mm(oa, ob, **okw), 20),
-            "plain_ms": cuda_ms(torch, lambda: matmul_blocked_plain(oa, ob, **okw), 3),
-            "library_ms": cuda_ms(torch, lambda: torch.mm(oa, ob, out_dtype=torch.float32), 20),
-            "bound_ms": wmma_bound_ms, "bound_by": wmma_bound_by, "odd_small": odd_small}
+    check_gemm_case(case, "packed")
+    max_err["packed"] = max(max_err["packed"], case["max_abs_err"])
+    first, again = mm(oa, ob, **okw), mm(oa, ob, **okw)
+    repeat = same_bits(torch, first, again)
+    del first, again
+    check(repeat, f"gemm {no}^3: two launches of the packed route differ")
+    packed_call = lambda: mm(oa, ob, **okw)  # noqa: E731
+    mm_call = lambda: torch.mm(oa, ob, out_dtype=torch.float32)  # noqa: E731
+    packed_ms, packed_lib_ms = cuda_ms_turns(torch, [packed_call, mm_call], 20)
+    packed_bound_ms, packed_bound_by = gemm_bound_ms(no, no, no)
+    packed = {"shape": f"({no}, {no}) x ({no}, {no}) bf16 -> f32, blocks {GEMM_ODD_BLOCK}",
+              "ms": packed_ms, "library_ms": packed_lib_ms,
+              "no_slower_than_torch_mm": packed_ms <= packed_lib_ms,
+              "timed": "CUDA events, median of 20, in turns with torch.mm",
+              "burst_ms": cuda_ms(torch, lambda: [packed_call() for _ in range(20)], 3) / 20,
+              "library_burst_ms": cuda_ms(torch, lambda: [mm_call() for _ in range(20)], 3) / 20,
+              "device_ms": pass_ms(torch, packed_call, reps=20),
+              "library_device_ms": pass_ms(torch, mm_call, reps=20),
+              "enqueue_us": enqueue_us(torch, packed_call, 200),
+              "library_enqueue_us": enqueue_us(torch, mm_call, 200),
+              "two_launches_bit_equal": repeat,
+              "plain_ms": cuda_ms(torch, lambda: matmul_blocked_plain(oa, ob, **okw), 3),
+              "bound_ms": packed_bound_ms, "bound_by": packed_bound_by, "odd_small": odd_small}
+    del oa, ob
 
     res = {"gemm_times": {
         "shape": f"({n}, {n}) x ({n}, {n}) bf16 -> f32",
@@ -3581,7 +3645,8 @@ def phase_gemm(torch, gt, card, n=GEMM_N):
         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "matrix_test": {k: v["times"] for k, v in runs.items()},
-        "launches": launches, "prng_launches": prng_launches, "wmma": wmma, "card": card}}
+        "launches": launches, "prng_launches": prng_launches, "packed": packed,
+        "card": card}}
     out(res)
     res = res["gemm_times"]
     res["max_abs_err"] = max_err
@@ -4051,15 +4116,34 @@ def phase_multichip_train(torch, gt, scene, card):
     return {"ranks": ranks, "bounds": bounds, "seconds": seconds, "launches": launches}
 
 
+def params_digest(params):
+    """sha256 of every parameter's bytes, in field order: equal digests
+    are equal bits."""
+    h = hashlib.sha256()
+    for p in params:
+        if p is not None:
+            h.update(p.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def train_times(root) -> int:
-    """``--train-times ROOT``: the training path's times with the port
-    package of the checkout at ROOT (this checkout's data and harness):
-    TRAIN_STEPS synchronized train-500k steps (host clock), a FIT_STEPS
-    fit-500k fit without checkpoints (wall ms a step, one synchronize at
-    its end), one densify episode after FIT_TIMED_STEPS densifying steps
-    (CUDA events, median of 5, as fit-500k times it), and the backward train kernel on the first step's inputs
-    (CUDA events) with each of its passes' device ms (torch.profiler).
-    Prints one ``{"train_times": ...}`` line."""
+    """``--train-times ROOT``: the training path's times and bits with the
+    port package of the checkout at ROOT (this checkout's data and
+    harness): TRAIN_STEPS synchronized train-500k steps (host clock), a
+    FIT_STEPS fit-500k fit without checkpoints (wall ms a step, one
+    synchronize at its end), the same fit with a checkpoint every
+    FIT_CHECKPOINT_EVERY steps and a resume from the first, one densify
+    episode after FIT_TIMED_STEPS densifying steps (CUDA events, median
+    of 5, as fit-500k times it), the backward train kernel on the first
+    step's inputs (CUDA events) with each of its passes' device ms
+    (torch.profiler), and the training gather's transpose (its autograd
+    backward on a seeded cotangent: CUDA events and device ms by
+    kernel), and the tile assignment without gradients
+    (``build_sorted_instances`` on the first step's projection: CUDA
+    events, and its kernels' device ms summed). The steps', the fits' and
+    the resume's losses and final
+    params' digests go with the times. Prints one ``{"train_times": ...}``
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4069,6 +4153,7 @@ def train_times(root) -> int:
     sys.path.insert(0, root)
     import gaussianrenderer_tpu_torch as gt
     from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.compositing import gather_sorted_features_seg
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     check(os.path.dirname(os.path.dirname(os.path.abspath(gt.__file__))) == root,
@@ -4092,15 +4177,34 @@ def train_times(root) -> int:
             torch, lambda: step(params, state, cams[i], targets[i]))
         losses.append(float(loss))
         step_ms.append(ms)
+    step_params = params_digest(params)
+    del params, state
     views = list(zip(cams, targets))
+    fit_kw = dict(steps=FIT_STEPS, loss_fn=gt.l1_dssim_loss, densify_every=FIT_DENSIFY_EVERY,
+                  densify_stop=0.7)
+
+    def optimizer():
+        return gt.make_3dgs_optimizer(position_lr_max_steps=FIT_STEPS)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, hist = gt.fit_scene(views, cfg, params0, steps=FIT_STEPS,
-                           optimizer=gt.make_3dgs_optimizer(position_lr_max_steps=FIT_STEPS),
-                           loss_fn=gt.l1_dssim_loss, densify_every=FIT_DENSIFY_EVERY,
-                           densify_stop=0.7)
+    fitted, hist = gt.fit_scene(views, cfg, params0, optimizer=optimizer(), **fit_kw)
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    fit_params = params_digest(fitted)
+    del fitted
+    # The fit again with checkpoints, and a resume from the first.
+    ck = fit_dir(f"chip_smoke_turns_{os.getpid()}")
+    again, hist_a = gt.fit_scene(views, cfg, params0, optimizer=optimizer(), checkpoint_dir=ck,
+                                 checkpoint_every=FIT_CHECKPOINT_EVERY, **fit_kw)
+    repeat_params = params_digest(again)
+    del again
+    resumed, hist_r = gt.fit_scene(
+        views, cfg, params0, optimizer=optimizer(),
+        resume_from=os.path.join(ck, f"step_{FIT_CHECKPOINT_EVERY:06d}"), **fit_kw)
+    resume_params = params_digest(resumed)
+    del resumed
+    shutil.rmtree(ck)
     # One densify episode from FIT_TIMED_STEPS densifying steps, as fit-500k times it.
     dopt = gt.make_3dgs_optimizer()
     dstep = ptrain._make_step_fn(cfg, dopt, gt.l1_dssim_loss, timed=False, densify=True)
@@ -4121,24 +4225,48 @@ def train_times(root) -> int:
     gout = torch.randn(stats.shape, generator=gen, device=DEVICE)
     gout[4:] = 0.0
     bwd = lambda: tt.train_backward(*args, gout, stats, chk, **kw)  # noqa: E731
+    # The gather's transpose: its backward alone, the graph kept.
+    with torch.no_grad():
+        proj = gt.preprocess_gaussians(
+            params0.to_scene(), cams[0], width=cfg.width, height=cfg.height,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+            sh_degree=cfg.sh_degree, quantize_centers=False)
+    tiling = lambda: gt.build_sorted_instances(  # noqa: E731
+        proj, tiles_x=cfg.tiles_x, num_tiles=cfg.num_tiles, near=cams[0].near, far=cams[0].far)
+    leaf = gt.build_features(proj).detach().requires_grad_(True)
+    gathered = gather_sorted_features_seg(leaf, asg, cfg.chunk_size)
+    cot = torch.randn(gathered.shape, generator=gen, device=DEVICE)
+    transpose = lambda: torch.autograd.grad(gathered, leaf, cot, retain_graph=True)  # noqa: E731
     out({"train_times": {
         "package": root, "card": card_line(),
         "step_ms_median": statistics.median(step_ms), "step_ms_all": step_ms,
-        "losses": losses, "fit_ms_per_step": fit_ms, "fit_losses": hist["losses"],
+        "losses": losses, "step_params": step_params,
+        "fit_ms_per_step": fit_ms, "fit_losses": hist["losses"], "fit_params": fit_params,
+        "repeat_losses": hist_a["losses"], "repeat_params": repeat_params,
+        "resume_losses": hist_r["losses"], "resume_params": resume_params,
         "episode_ms_median_of_5": episode_ms,
         "fit_episodes": hist["densify"], "bwd_ms": cuda_ms(torch, bwd, 10),
         "bwd_pass_device_ms": pass_ms(torch, bwd, reps=10),
+        "transpose_ms": cuda_ms(torch, transpose, 10),
+        "transpose_device_ms": pass_ms(torch, transpose, reps=10),
+        "tiling_ms": cuda_ms(torch, tiling, 20),
+        "tiling_device_ms": sum(pass_ms(torch, tiling, reps=10).values()),
         "instances": int(asg.total_instances), "checkpoint_rows": n_chk,
     }})
     return 0
 
 
-def train_turns(parent) -> int:
+def train_turns(parent, same_bits=False) -> int:
     """``--train-turns PARENT``: :func:`train_times` of the checkout at
     PARENT (say, the parent commit's ``git archive``) and of this one, in
     turns (parent, change, change, parent), each in a process of its own
     on the one card. Prints each run's line, then one ``{"train_turns":
-    ...}`` line with both versions' numbers side by side."""
+    ...}`` line with both versions' numbers side by side, and whether
+    every run gave the same bits: the steps' losses and params, the fit's
+    losses, episodes and params, its repeat and its resume. Fails unless
+    every run repeats and resumes its own fit and, with ``same_bits``
+    (``--same-bits``: for a change that means to keep every bit), unless
+    all four runs give the same bits."""
     runs = []
     for label, root in (("parent", parent), ("change", REPO), ("change", REPO),
                         ("parent", parent)):
@@ -4157,6 +4285,14 @@ def train_turns(parent) -> int:
     def grads_pass(r):
         return r["bwd_pass_device_ms"].get("bwd_grads_kernel")
 
+    bit_keys = ("losses", "step_params", "fit_losses", "fit_episodes", "fit_params",
+                "repeat_params", "resume_losses", "resume_params")
+    own = {f"{r['label']} {i}": (r["repeat_losses"] == r["fit_losses"]
+                                 and r["repeat_params"] == r["fit_params"]
+                                 and r["resume_losses"] == r["fit_losses"][FIT_CHECKPOINT_EVERY:]
+                                 and r["resume_params"] == r["fit_params"])
+           for i, r in enumerate(runs)}
+    across = {key: all(r[key] == runs[0][key] for r in runs) for key in bit_keys}
     out({"train_turns": {
         "order": [r["label"] for r in runs], "card": card_line(),
         "step_ms_median": side("step_ms_median"), "fit_ms_per_step": side("fit_ms_per_step"),
@@ -4164,13 +4300,22 @@ def train_turns(parent) -> int:
         "bwd_ms": side("bwd_ms"),
         "bwd_grads_pass_device_ms": {lab: [grads_pass(r) for r in runs if r["label"] == lab]
                                      for lab in ("parent", "change")},
+        "transpose_ms": side("transpose_ms"),
+        "transpose_device_ms": side("transpose_device_ms"),
+        "tiling_ms": side("tiling_ms"), "tiling_device_ms": side("tiling_device_ms"),
         "fit_losses": side("fit_losses"),
         "runs_repeat_losses": {
             lab: all(r["losses"] == same[0]["losses"] and r["fit_losses"] == same[0]["fit_losses"]
                      for r in same)
             for lab, same in ((lab, [r for r in runs if r["label"] == lab])
                               for lab in ("parent", "change"))},
+        "each_run_repeats_and_resumes_its_fit": own,
+        "bits_equal_across_all_runs": across,
+        "bits_gated": same_bits,
     }})
+    check(all(own.values()), f"train turns: a run's fit does not repeat or resume: {own}")
+    if same_bits:
+        check(all(across.values()), f"train turns: the runs' bits differ: {across}")
     return 0
 
 
@@ -4436,7 +4581,9 @@ def main() -> int:
                               "fit-500k": fit_res["train_kernel_calls_fit"]["segment_sum"]},
         "max_abs_err": train_times["segment_sum"]["max_abs_err"],
         "ms": train_times["segment_sum"]["ms"],
+        "argsort_route_ms": train_times["segment_sum"]["argsort_route_ms"],
         "device_ms": train_times["segment_sum"]["device_ms"],
+        "burst_ms": train_times["segment_sum"]["burst_ms"],
         "plain_ms": train_times["segment_sum"]["plain_ms"],
         "bound_ms": train_times["segment_sum"]["bound_ms"],
         "bound_by": train_times["segment_sum"]["bound_by"],
@@ -4481,22 +4628,28 @@ def main() -> int:
         "shape": gemm_res["shape"],
         "library_call": "torch.mm(a, b, out_dtype=torch.float32)",
         "launches_in": "two apps/matrix_test runs (random, --ones), N 8192",
+        "kernel_launches_per_call": 1,
     }, {
-        "name": "matmul_wmma",
+        "name": "matmul_packed",
         "route": "cuda",
         "source": "gaussianrenderer_tpu_torch/csrc/matmul.cu",
         "replaces": "gaussianrenderer_tpu/ops/pallas/matmul.py:22",
-        "launches": gemm_res["launches"]["wmma"],
-        "max_abs_err": gemm_res["max_abs_err"]["wmma"],
-        "ms": gemm_res["wmma"]["ms"],
-        "plain_ms": gemm_res["wmma"]["plain_ms"],
-        "bound_ms": gemm_res["wmma"]["bound_ms"],
-        "bound_by": gemm_res["wmma"]["bound_by"],
-        "library_ms": gemm_res["wmma"]["library_ms"],
-        "shape": gemm_res["wmma"]["shape"],
+        "launches": gemm_res["launches"]["packed"],
+        "max_abs_err": gemm_res["max_abs_err"]["packed"],
+        "ms": gemm_res["packed"]["ms"],
+        "device_ms": gemm_res["packed"]["device_ms"],
+        "burst_ms": gemm_res["packed"]["burst_ms"],
+        "plain_ms": gemm_res["packed"]["plain_ms"],
+        "bound_ms": gemm_res["packed"]["bound_ms"],
+        "bound_by": gemm_res["packed"]["bound_by"],
+        "library_ms": gemm_res["packed"]["library_ms"],
+        "shape": gemm_res["packed"]["shape"],
         "library_call": "torch.mm(a, b, out_dtype=torch.float32)",
-        "launches_in": f"one apps/matrix_test run at N {GEMM_ODD_N} (shapes TMA cannot take)",
-        "odd_small": gemm_res["wmma"]["odd_small"],
+        "launches_in": (f"one apps/matrix_test run at N {GEMM_ODD_N} (shapes TMA cannot take: "
+                        "a pack kernel, then the product kernel)"),
+        "odd_small": gemm_res["packed"]["odd_small"],
+        "launches_counted": "calls; each launches the pack kernel, then the product kernel",
+        "kernel_launches_per_call": 2,
     }, {
         "name": "block_sort",
         "route": "cuda",
@@ -4532,6 +4685,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--train-times":
         sys.exit(train_times(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--train-turns":
-        sys.exit(train_turns(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--train-turns":
+        if len(sys.argv) == 4 and sys.argv[3] != "--same-bits":
+            sys.exit(f"chip_smoke: unknown argument {sys.argv[3]}")
+        sys.exit(train_turns(sys.argv[2], same_bits=len(sys.argv) == 4))
     sys.exit(main())

@@ -78,16 +78,14 @@ _SIGNATURES = {
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "matmul": {
-        "gr_matmul": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
-        "gr_matmul_sm90": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+        # (a, b, c, m, n, k, a_pack or NULL, b_pack or NULL, stream)
+        "gr_matmul": (_c_int, [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p] * 3),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },
     "segment_sum": {
-        # (rows, d, order, offsets, n, out, stream)
+        # (rows, d, order (int32), offsets (int32), n, out, stream)
         "gr_segment_sum": (
-            _c_int,
-            [_c_void_p, _c_int, _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p,
-             _c_void_p],
+            _c_int, [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p],
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

@@ -1,5 +1,4 @@
-// bf16 GEMM for Hopper (sm_90a): C = A · B with f32 accumulation, in two
-// kernels.
+// bf16 GEMM for Hopper (sm_90a): C = A · B with f32 accumulation.
 //
 // Replaces the TPU kernel gaussianrenderer_tpu/ops/pallas/matmul.py
 // `_mm_kernel` (reached by `matmul_pallas`): (M, K) · (K, N), bf16 inputs,
@@ -11,214 +10,109 @@
 // What bounds it on the card: operations. At the harness's 8192^3 it
 // needs 2 x 5.5e11 multiply-adds over 989 TFLOP/s of dense bf16 (1.11 ms)
 // against 537 MB over 3.35 TB/s (0.16 ms), and only `wgmma` reaches that
-// rate. So the main kernel (`gr_matmul_sm90`) is the warp-specialised
-// Hopper shape:
+// rate. So the kernel (`matmul_kernel`) is the warp-specialised Hopper
+// shape:
 //
-// - a persistent grid, one CTA per SM, walking 128x256 output tiles in
+// - a persistent grid, one CTA per SM, walking 128 x BN output tiles in
 //   groups of 8 tile rows, so the CTAs running at once share A and B
 //   panels in L2, and the producer fetches the next tile's first K steps
-//   while the consumers write the last one out;
+//   while the consumers write the last one out. BN is 256 where that
+//   gives every SM a tile, else 64: at about 1000^3, 128x256 tiles would
+//   leave 100 of the 132 SMs idle (32 tiles), 128x64 tiles busy 128;
 // - one producer warp that only issues TMA loads (128-byte swizzle, zero
-//   fill past every edge) into a 4-stage ring of 48 KB stages (A 128x64,
-//   B 64x256 as four 64-wide N slabs), handed over by full/empty
-//   mbarriers;
+//   fill past every edge) into a ring of stages (A 128x64, B 64xBN as
+//   64-wide N slabs: 4 stages of 48 KB at BN = 256, 8 of 24 KB at 64),
+//   handed over by full/empty mbarriers;
 // - two consumer warpgroups, each multiplying its 64 rows by the whole
-//   256 columns with `wgmma.mma_async.m64n256k16` straight from shared
-//   memory into 128 f32 accumulators a thread, one K step's group kept
+//   BN columns with `wgmma.mma_async.m64nBNk16` straight from shared
+//   memory into BN / 2 f32 accumulators a thread, one K step's group kept
 //   in flight while the next is issued. A is K-major; B, being (K, N)
 //   row-major, is N-major: its descriptor steps 8 KB between N slabs
 //   (leading offset) and 1 KB between groups of 8 K rows (stride
 //   offset), and the instruction transposes it (imm-trans-b = 1).
 //   `setmaxnreg` moves registers from the producer (40) to the
 //   consumers (232);
-// - an epilogue that stores each accumulator pair as one float2, guarded
-//   on M and N.
+// - an epilogue that stores each accumulator pair as one float2 (two
+//   floats where N or C's row stride is odd), guarded on M and N.
 //
 // TMA needs 16-byte global strides and bases: K and N multiples of 8 and
 // both base pointers 16-byte aligned (the wrapper's `gemm_kernel` decides
-// this from shape and alignment alone). Every other shape goes to the
-// second kernel (`gr_matmul`): `nvcuda::wmma` 16x16x16 fragments, a
-// 128x128 tile per block of 8 warps, A and B slices staged through padded
-// shared rows with zero fill (16 bytes at a time when it can, else one
-// element at a time) and a guarded per-warp output scratch, so it takes
-// any M, N, K >= 1, at the rate of Ampere's `mma.sync` tiles.
+// this from shape and alignment alone). Every other shape takes the
+// packed route through the same entry point (`gr_matmul`): a pack kernel
+// copies each operand TMA cannot describe into the wrapper's scratch,
+// rows padded to a multiple of 8 elements from a 16-byte-aligned base
+// (the padding zeroed), and the same kernel multiplies the copies. Its
+// tensor maps keep the true K and N, so TMA zero-fills past them as it
+// does for aligned shapes, and C is written at its true (M, N). Zeros
+// add exact zeros to every sum, and every output element is one
+// accumulator's sum in a fixed order, so a launch repeats bit for bit.
 
 #include <cuda.h>  // CUtensorMap and its enums (libcuda itself is not linked)
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+// ------------------------------------------------------------------ pack
+constexpr int kPackThreads = 256;
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;
-constexpr int kWarpsM = 4;  // warp grid 4 x 2; each warp 32 x 64
-constexpr int kWarpM = kBM / kWarpsM;
-constexpr int kWarpN = kBN / 2;
-constexpr int kFragM = kWarpM / 16;  // 2
-constexpr int kFragN = kWarpN / 16;  // 4
-// Shared rows padded by 8 bf16 (16 bytes): keeps every fragment pointer
-// 32-byte aligned and spreads rows over the banks.
-constexpr int kLdA = kBK + 8;
-constexpr int kLdB = kBN + 8;
-// Elements (or 8-element vectors) each thread stages per K step.
-constexpr int kScalarLoads = kBM * kBK / kThreads;     // 16 of A, 16 of B
-constexpr int kVecLoads = kBM * kBK / 8 / kThreads;    // 2 of A, 2 of B
-
-static_assert(kBM * kBK == kBK * kBN, "A and B slices hold as many elements");
-
-struct Staged {
-  uint4 a[kVecLoads];
-  uint4 b[kVecLoads];
-  uint16_t as[kScalarLoads];
-  uint16_t bs[kScalarLoads];
+// One operand to copy: src (rows, cols) contiguous into dst (rows, ld),
+// ld a multiple of 8; `vecs` = rows * ld / 8 16-byte vectors.
+struct PackJob {
+  const uint16_t* src;
+  uint16_t* dst;
+  int rows, cols, ld;
+  long long vecs;
 };
 
-// Loads the K step at k0 into registers, zero past the edges.
-template <bool kVec>
-__device__ __forceinline__ void load_step(const uint16_t* __restrict__ A,
-                                          const uint16_t* __restrict__ B, int M, int N,
-                                          int K, int m0, int n0, int k0, Staged& st) {
-  const int t = threadIdx.x;
-  if (kVec) {
+// Each thread writes one 16-byte vector of dst (8 elements of a row, zero
+// past `cols`) from 8 two-byte loads of src: neighbouring threads read
+// and write neighbouring bytes, whatever src's alignment. Job j0's
+// vectors come first, then j1's.
+__global__ void __launch_bounds__(kPackThreads) pack_kernel(PackJob j0, PackJob j1) {
+  long long t = static_cast<long long>(blockIdx.x) * kPackThreads + threadIdx.x;
+  const bool first = t < j0.vecs;
+  const PackJob j = first ? j0 : j1;
+  if (!first) t -= j0.vecs;
+  if (t >= j.vecs) return;
+  const int per_row = j.ld / 8;
+  const int r = static_cast<int>(t / per_row);
+  const int c0 = static_cast<int>(t - static_cast<long long>(r) * per_row) * 8;
+  const uint16_t* src = j.src + static_cast<size_t>(r) * j.cols;
+  uint32_t w[4];
 #pragma unroll
-    for (int i = 0; i < kVecLoads; ++i) {
-      const int v = t + i * kThreads;
-      const int ar = v / (kBK / 8), ac = (v % (kBK / 8)) * 8;
-      const int gr = m0 + ar, gc = k0 + ac;
-      st.a[i] = (gr < M && gc < K)
-                    ? *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gr) * K + gc)
-                    : make_uint4(0, 0, 0, 0);
-      const int br = v / (kBN / 8), bc = (v % (kBN / 8)) * 8;
-      const int hr = k0 + br, hc = n0 + bc;
-      st.b[i] = (hr < K && hc < N)
-                    ? *reinterpret_cast<const uint4*>(B + static_cast<size_t>(hr) * N + hc)
-                    : make_uint4(0, 0, 0, 0);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kScalarLoads; ++i) {
-      const int e = t + i * kThreads;
-      const int ar = e / kBK, ac = e % kBK;
-      const int gr = m0 + ar, gc = k0 + ac;
-      st.as[i] = (gr < M && gc < K) ? A[static_cast<size_t>(gr) * K + gc] : 0;
-      const int br = e / kBN, bc = e % kBN;
-      const int hr = k0 + br, hc = n0 + bc;
-      st.bs[i] = (hr < K && hc < N) ? B[static_cast<size_t>(hr) * N + hc] : 0;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = c0 + 2 * i < j.cols ? src[c0 + 2 * i] : 0;
+    const uint32_t hi = c0 + 2 * i + 1 < j.cols ? src[c0 + 2 * i + 1] : 0;
+    w[i] = lo | (hi << 16);
   }
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store_step(const Staged& st, uint16_t* sA, uint16_t* sB) {
-  const int t = threadIdx.x;
-  if (kVec) {
-#pragma unroll
-    for (int i = 0; i < kVecLoads; ++i) {
-      const int v = t + i * kThreads;
-      *reinterpret_cast<uint4*>(sA + (v / (kBK / 8)) * kLdA + (v % (kBK / 8)) * 8) = st.a[i];
-      *reinterpret_cast<uint4*>(sB + (v / (kBN / 8)) * kLdB + (v % (kBN / 8)) * 8) = st.b[i];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kScalarLoads; ++i) {
-      const int e = t + i * kThreads;
-      sA[(e / kBK) * kLdA + e % kBK] = st.as[i];
-      sB[(e / kBN) * kLdB + e % kBN] = st.bs[i];
-    }
-  }
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-matmul_kernel(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
-              float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(32) uint16_t sA[kBM * kLdA];
-  __shared__ __align__(32) uint16_t sB[kBK * kLdB];
-  __shared__ __align__(32) float sOut[kThreads / 32][16 * 16];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFragM][kFragN];
-#pragma unroll
-  for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFragN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  Staged st;
-  load_step<kVec>(A, B, M, N, K, m0, n0, 0, st);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // the previous step's fragments are loaded
-    store_step<kVec>(st, sA, sB);
-    __syncthreads();
-    if (k0 + kBK < K) load_step<kVec>(A, B, M, N, K, m0, n0, k0 + kBK, st);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[kFragM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[kFragN];
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i)
-        wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const __nv_bfloat16*>(sA + (wm * kWarpM + i * 16) * kLdA + kk),
-            kLdA);
-#pragma unroll
-      for (int j = 0; j < kFragN; ++j)
-        wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const __nv_bfloat16*>(sB + kk * kLdB + wn * kWarpN + j * 16),
-            kLdB);
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFragN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-
-  // Epilogue: each fragment through the warp's scratch, guarded stores.
-  float* scratch = sOut[warp];
-#pragma unroll
-  for (int i = 0; i < kFragM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFragN; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = m0 + wm * kWarpM + i * 16, c0 = n0 + wn * kWarpN + j * 16;
-#pragma unroll
-      for (int e = lane; e < 256; e += 32) {
-        const int r = r0 + e / 16, c = c0 + e % 16;
-        if (r < M && c < N) C[static_cast<size_t>(r) * N + c] = scratch[e];
-      }
-      __syncwarp();
-    }
-  }
+  *reinterpret_cast<uint4*>(j.dst + static_cast<size_t>(r) * j.ld + c0) =
+      make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // ------------------------------------------------------------------ sm90
 namespace sm90 {
 
 constexpr int kBM = 128;
-constexpr int kBN = 256;
 constexpr int kBK = 64;                 // one 128-byte swizzle row of bf16
-constexpr int kStages = 4;
 constexpr int kConsumers = 2;           // warpgroups, 64 rows of the tile each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kGroupM = 8;              // tile rows per raster group
 constexpr int kSlabN = 64;              // N width of one B slab (128 bytes)
 constexpr int kATileBytes = kBM * kBK * 2;             // 16 KB
 constexpr int kBSlabBytes = kBK * kSlabN * 2;          // 8 KB
-constexpr int kBTileBytes = kBSlabBytes * (kBN / kSlabN);  // 32 KB
-constexpr int kStageBytes = kATileBytes + kBTileBytes;     // 48 KB
-constexpr int kBarrierBytes = 2 * kStages * 8;
-// The ring, its barriers, and slack to align the ring to 1024 bytes (the
-// 128-byte swizzle's period).
-constexpr int kSmemBytes = kStages * kStageBytes + kBarrierBytes + 1024;
-constexpr int kAccum = kBN / 2;          // f32 accumulators a consumer thread
+
+// The shape of a 128 x BN tile's ring.
+template <int kBN>
+struct Tile {
+  static constexpr int kStages = kBN == 256 ? 4 : 8;
+  static constexpr int kBTileBytes = kBSlabBytes * (kBN / kSlabN);
+  static constexpr int kStageBytes = kATileBytes + kBTileBytes;
+  // The ring, its barriers, and slack to align the ring to 1024 bytes
+  // (the 128-byte swizzle's period).
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static constexpr int kAccum = kBN / 2;  // f32 accumulators a consumer thread
+};
 
 // Matrix descriptor fields that do not depend on the address: the
 // 128-byte swizzle (layout type 1, bits 62-63) and the leading and stride
@@ -276,15 +170,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
-__device__ __forceinline__ void fence_accum(float (&d)[kAccum]) {
+template <int kN>
+__device__ __forceinline__ void fence_accum(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < kAccum; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64x256, f32) += A (64x16, K-major) · B (16x256, N-major): scale-d
-// 1 (accumulate), A not transposed, B transposed.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAccum], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+// d (64xN, f32) += A (64x16, K-major) · B (16xN, N-major), N = 256 or 64
+// (the accumulators a thread holds: N / 2): scale-d 1 (accumulate), A not
+// transposed, B transposed.
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -330,6 +225,25 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAccum], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void tile_coords(int t, int num_m, int num_n, int& mt, int& nt) {
   const int per_group = kGroupM * num_n;
   const int first = (t / per_group) * kGroupM;
@@ -339,10 +253,14 @@ __device__ __forceinline__ void tile_coords(int t, int num_m, int num_n, int& mt
   nt = local / rows;
 }
 
+// C (M, N) with row stride ldc = A · B over 128 x kBN tiles.
+template <int kBN>
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b, float* __restrict__ C, int M, int N,
-              int K) {
+              int K, int ldc) {
+  using T = Tile<kBN>;
+  constexpr int kStages = T::kStages, kStageBytes = T::kStageBytes, kAccum = T::kAccum;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) &
                         ~1023u;
@@ -410,7 +328,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int kk = 0; kk < kBK / 16; ++kk)
           // K advances 32 bytes inside A's swizzled rows and 16 rows
           // (2 KB) down B's slabs.
-          wgmma_m64n256k16(d, desc(kDescA, a_src + 32 * kk), desc(kDescB, b_src + 2048 * kk));
+          wgmma(d, desc(kDescA, a_src + 32 * kk), desc(kDescB, b_src + 2048 * kk));
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         fence_accum(d);
         // The previous step's products are done: release its stage.
@@ -428,16 +346,30 @@ matmul_kernel(const __grid_constant__ CUtensorMap map_a,
       // at columns 8 j + 2 (lane % 4) and the one after.
       const int row = mt * kBM + wg * 64 + warp * 16 + lane / 4;
       const int col0 = nt * kBN + 2 * (lane % 4);
+      // Columns come in even pairs: one float2 a pair where every row
+      // starts 8-byte aligned and no pair straddles N.
+      const bool pairs = ldc % 2 == 0 && N % 2 == 0;
+      float* c_lo = C + static_cast<size_t>(row) * ldc;
+      float* c_hi = c_lo + static_cast<size_t>(8) * ldc;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int col = col0 + 8 * j;
-        if (col < N) {
-          if (row < M)
-            __stcs(reinterpret_cast<float2*>(C + static_cast<size_t>(row) * N + col),
-                   make_float2(d[4 * j], d[4 * j + 1]));
-          if (row + 8 < M)
-            __stcs(reinterpret_cast<float2*>(C + static_cast<size_t>(row + 8) * N + col),
-                   make_float2(d[4 * j + 2], d[4 * j + 3]));
+        if (pairs) {
+          if (col < N) {
+            if (row < M)
+              __stcs(reinterpret_cast<float2*>(c_lo + col), make_float2(d[4 * j], d[4 * j + 1]));
+            if (row + 8 < M)
+              __stcs(reinterpret_cast<float2*>(c_hi + col),
+                     make_float2(d[4 * j + 2], d[4 * j + 3]));
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e < N) {
+              if (row < M) __stcs(c_lo + col + e, d[4 * j + e]);
+              if (row + 8 < M) __stcs(c_hi + col + e, d[4 * j + 2 + e]);
+            }
+          }
         }
       }
     }
@@ -468,12 +400,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major (rows, cols) bf16 matrix read in (box_rows, 64) boxes with
-// the 128-byte swizzle and zero fill past its edges.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int cols,
+// A row-major (rows, cols) bf16 matrix with row stride ld (a multiple of
+// 8) read in (box_rows, 64) boxes with the 128-byte swizzle and zero fill
+// past its edges.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int cols, int ld,
             int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
@@ -494,60 +427,89 @@ int num_sms() {
   return cached;
 }
 
+long long tiles(int m, int n, int bn) {
+  return static_cast<long long>((m + kBM - 1) / kBM) * ((n + bn - 1) / bn);
+}
+
+template <int kBN>
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, float* c, int m, int n, int k,
+           int ldc, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        matmul_kernel<kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<kBN>::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const long long t = tiles(m, n, kBN);
+  const int grid = static_cast<int>(t < num_sms() ? t : num_sms());
+  matmul_kernel<kBN><<<grid, kThreads, Tile<kBN>::kSmemBytes, stream>>>(map_a, map_b, c, m, n,
+                                                                         k, ldc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C (m, n), row stride ldc, = A (m, k), row stride lda, · B (k, n), row
+// stride ldb: 128x256 tiles where they give every SM one, else 128x64.
+int run(const void* a, const void* b, float* c, int m, int n, int k, int lda, int ldb, int ldc,
+        cudaStream_t stream) {
+  if (m < 1 || n < 1 || k < 1 || lda % 8 != 0 || ldb % 8 != 0 || lda < k || ldb < n ||
+      ldc < n || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_a, map_b;
+  if (!encode(fn, &map_a, a, m, k, lda, kBM) || !encode(fn, &map_b, b, k, n, ldb, kBK))
+    return static_cast<int>(cudaErrorNotSupported);
+  if (tiles(m, n, 256) >= num_sms()) return launch<256>(map_a, map_b, c, m, n, k, ldc, stream);
+  return launch<64>(map_a, map_b, c, m, n, k, ldc, stream);
+}
+
 }  // namespace sm90
+
+int round8(int x) { return (x + 7) / 8 * 8; }
+
 }  // namespace
 
 extern "C" {
 
 // C (M, N) f32 = A (M, K) bf16 · B (K, N) bf16, all row-major and
-// contiguous, by the `wmma` kernel (any shape). Launches on `stream`;
-// returns cudaGetLastError() (0 = ok).
-int gr_matmul(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
+// contiguous, for any m, n, k >= 1. An operand TMA can read in place (its
+// row a multiple of 16 bytes, its base 16-byte aligned) is passed with a
+// null pack pointer. Any other is first copied into its pack, rows padded
+// to round8(k) (round8(n)) elements: the caller passes a 16-byte-aligned
+// scratch of m * round8(k) (k * round8(n)) bf16. Launches the pack kernel
+// (where a pack is given) and the product on `stream`; returns
+// cudaGetLastError() (0 = ok), cudaErrorInvalidValue for an operand TMA
+// cannot read without its pack, and cudaErrorNotSupported if the tensor
+// maps cannot be encoded.
+int gr_matmul(const void* a, const void* b, void* c, int m, int n, int k, void* a_pack,
+              void* b_pack, void* stream) {
   if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const uint16_t* A = static_cast<const uint16_t*>(a);
-  const uint16_t* B = static_cast<const uint16_t*>(b);
-  float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = k % 8 == 0 && n % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  if (vec)
-    matmul_kernel<true><<<grid, kThreads, 0, s>>>(A, B, C, m, n, k);
-  else
-    matmul_kernel<false><<<grid, kThreads, 0, s>>>(A, B, C, m, n, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same product by the wgmma + TMA kernel. Needs k and n multiples of 8
-// and a, b 16-byte aligned (TMA's global strides and bases); returns
-// cudaErrorInvalidValue otherwise, and cudaErrorNotSupported if the
-// tensor maps cannot be encoded.
-int gr_matmul_sm90(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || k % 8 != 0 || n % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const sm90::EncodeTiled fn = sm90::encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap map_a, map_b;
-  if (!sm90::encode(fn, &map_a, a, m, k, sm90::kBM) ||
-      !sm90::encode(fn, &map_b, b, k, n, sm90::kBK))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(sm90::matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sm90::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+  PackJob ja = {}, jb = {};
+  int lda = k, ldb = n;
+  if (a_pack != nullptr) {
+    lda = round8(k);
+    ja = {static_cast<const uint16_t*>(a), static_cast<uint16_t*>(a_pack), m, k, lda,
+          static_cast<long long>(m) * lda / 8};
+    a = a_pack;
   }
-  const long long tiles = static_cast<long long>((m + sm90::kBM - 1) / sm90::kBM) *
-                          ((n + sm90::kBN - 1) / sm90::kBN);
-  const int grid = static_cast<int>(tiles < sm90::num_sms() ? tiles : sm90::num_sms());
-  sm90::matmul_kernel<<<grid, sm90::kThreads, sm90::kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(map_a, map_b,
-                                                              static_cast<float*>(c), m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  if (b_pack != nullptr) {
+    ldb = round8(n);
+    jb = {static_cast<const uint16_t*>(b), static_cast<uint16_t*>(b_pack), k, n, ldb,
+          static_cast<long long>(k) * ldb / 8};
+    b = b_pack;
+  }
+  const long long vecs = ja.vecs + jb.vecs;
+  if (vecs > 0) {
+    const long long blocks = (vecs + kPackThreads - 1) / kPackThreads;
+    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    pack_kernel<<<static_cast<unsigned>(blocks), kPackThreads, 0, s>>>(ja, jb);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return sm90::run(a, b, static_cast<float*>(c), m, n, k, lda, ldb, n, s);
 }
 
 const char* gr_cuda_error_string(int code) {

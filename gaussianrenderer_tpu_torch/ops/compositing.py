@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from gaussianrenderer_tpu_torch.ops.cuda.segment_sum import segment_sum
+from gaussianrenderer_tpu_torch.ops.cuda.segment_sum import segment_sum_ordered
 from gaussianrenderer_tpu_torch.ops.projection import ProjectedGaussians
 from gaussianrenderer_tpu_torch.ops.tiling import TileAssignment
 
@@ -91,18 +91,18 @@ def gather_sorted_features(
 
 class _GatherRowsSeg(torch.autograd.Function):
     """``feats[ids]`` whose backward sums each Gaussian's instance rows
-    in their sorted order (``ops/cuda/segment_sum.py``)."""
+    in their sorted order: the rows ``order[offsets[s]:offsets[s + 1]]``
+    of Gaussian ``s`` (``ops/cuda/segment_sum.py``)."""
 
     @staticmethod
-    def forward(ctx, feats, ids):
-        ctx.save_for_backward(ids)
-        ctx.n = feats.shape[0]
+    def forward(ctx, feats, ids, order, offsets):
+        ctx.save_for_backward(order, offsets)
         return feats[ids]
 
     @staticmethod
     def backward(ctx, d):
-        (ids,) = ctx.saved_tensors
-        return segment_sum(d.contiguous(), ids, ctx.n), None
+        order, offsets = ctx.saved_tensors
+        return segment_sum_ordered(d.contiguous(), order, offsets), None, None, None
 
 
 def gather_sorted_features_seg(
@@ -116,10 +116,18 @@ def gather_sorted_features_seg(
     scatter-add is serial on the TPU. The port adds each Gaussian's rows
     directly, in their sorted (tile, depth) order, with one fixed order
     on the card (no float atomics): a step gives the same gradient every
-    time, and on the CPU the same bits as ``index_add_``. Its stable
-    argsort by id takes the place of the emission counts that locate the
-    JAX package's segments."""
-    rows = _GatherRowsSeg.apply(feats, assignment.gaussian_id.to(torch.int64))
+    time, and on the CPU the same bits as ``index_add_``. As in the JAX
+    package, the emission locates the segments: the assignment's
+    ``segment_start`` bounds each Gaussian's emitted slots and
+    ``segment_slot`` gives each slot's sorted row, in rising order (the
+    stable argsort of ``gaussian_id``, which the backward need not
+    compute)."""
+    if assignment.segment_start.shape[0] != feats.shape[0] + 1:
+        raise ValueError(
+            f"gather: {feats.shape[0]} feature rows, but the assignment's segments "
+            f"cover {assignment.segment_start.shape[0] - 1} Gaussians")
+    rows = _GatherRowsSeg.apply(feats, assignment.gaussian_id.to(torch.int64),
+                                assignment.segment_slot, assignment.segment_start)
     return _pad_chunk(rows, chunk_size)
 
 

@@ -11,6 +11,18 @@ sort's tie rule are the JAX package's, ``gaussian_id``, ``tile_id``,
 ``tile_start`` and ``tile_count`` equal its output bit for bit on the
 first ``total_instances`` slots.
 
+The assignment also keeps where each Gaussian's instances went, for the
+training gather's transpose (``ops/compositing.py``): ``segment_start``
+is the emission's exclusive scan (Gaussian ``s`` emitted slots
+``[segment_start[s], segment_start[s + 1])``) and ``segment_slot`` the
+sorted position of each emitted slot (the inverse of the sort's
+permutation). A rect lies inside the grid and is walked row-major, and
+all its instances share one depth, so one Gaussian's keys rise in
+emission order and its instances keep that order in the sort: its
+sorted rows are ``segment_slot[segment_start[s]:segment_start[s + 1]]``
+in increasing order, which is what a stable argsort of ``gaussian_id``
+and a search of its runs would give, with no second sort.
+
 The JAX package expands into a static capacity buffer (the TPU needs
 static shapes) and flags an overflow; here emission is count → scan and
 the arrays hold exactly the emitted instances, so nothing is dropped and
@@ -24,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaussianrenderer_tpu_torch.ops.projection import ProjectedGaussians
-from gaussianrenderer_tpu_torch.ops.sort import pack_key, sort_packed
+from gaussianrenderer_tpu_torch.ops.sort import pack_key
 
 
 class TileAssignment(NamedTuple):
@@ -36,6 +48,8 @@ class TileAssignment(NamedTuple):
     tile_count: torch.Tensor  # (T,) int32 instances in each tile
     total_instances: torch.Tensor  # () int64 — instances emitted (== C)
     overflow: torch.Tensor  # () bool — always False: nothing is truncated
+    segment_slot: torch.Tensor  # (C,) int32 sorted slot of each emitted instance
+    segment_start: torch.Tensor  # (N + 1,) int32 first emitted slot of each Gaussian, then C
 
 
 def build_sorted_instances(
@@ -93,9 +107,11 @@ def build_sorted_instances(
     w = rect_w[splat]
     tile = (tmin_x[splat] + pos % w) + (tmin_y[splat] + pos // w) * tiles_x
 
-    key_sorted, gauss_sorted = sort_packed(
-        pack_key(tile, depth_q[splat], depth_bits), splat
-    )
+    # The stable sort of ops/sort.sort_packed, keeping its permutation.
+    key_sorted, perm = torch.sort(pack_key(tile, depth_q[splat], depth_bits), stable=True)
+    gauss_sorted = splat[perm]
+    segment_slot = torch.empty(total, dtype=torch.int32, device=device)
+    segment_slot[perm] = torch.arange(total, dtype=torch.int32, device=device)
     tile_sorted = key_sorted >> depth_bits
     count = torch.bincount(tile_sorted, minlength=num_tiles)
     start = torch.cumsum(count, 0) - count
@@ -106,4 +122,6 @@ def build_sorted_instances(
         tile_count=count.to(torch.int32),
         total_instances=torch.tensor(total, device=device),
         overflow=torch.zeros((), dtype=torch.bool, device=device),
+        segment_slot=segment_slot,
+        segment_start=torch.cat([first, first.new_full((1,), total)]).to(torch.int32),
     )

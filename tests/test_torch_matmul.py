@@ -90,8 +90,8 @@ def _offset_view(rows, cols, elements):
     return flat[elements:].view(rows, cols)
 
 
-# (A, B, kernel): TMA takes K and N multiples of 8 with 16-byte-aligned
-# bases; everything else goes to the wmma kernel.
+# (A, B, route): TMA takes K and N multiples of 8 with 16-byte-aligned
+# bases; everything else takes the packed route.
 _DISPATCH = {
     "8192_cube": (lambda: torch.empty((8192, 8192), dtype=torch.bfloat16),
                   lambda: torch.empty((8192, 8192), dtype=torch.bfloat16), "sm90"),
@@ -100,15 +100,15 @@ _DISPATCH = {
     "edge_264_136_328": (lambda: torch.empty((264, 136), dtype=torch.bfloat16),
                          lambda: torch.empty((136, 328), dtype=torch.bfloat16), "sm90"),
     "odd_37_13_29": (lambda: torch.empty((37, 13), dtype=torch.bfloat16),
-                     lambda: torch.empty((13, 29), dtype=torch.bfloat16), "wmma"),
+                     lambda: torch.empty((13, 29), dtype=torch.bfloat16), "packed"),
     "k_not_8": (lambda: torch.empty((64, 12), dtype=torch.bfloat16),
-                lambda: torch.empty((12, 64), dtype=torch.bfloat16), "wmma"),
+                lambda: torch.empty((12, 64), dtype=torch.bfloat16), "packed"),
     "n_not_8": (lambda: torch.empty((64, 64), dtype=torch.bfloat16),
-                lambda: torch.empty((64, 60), dtype=torch.bfloat16), "wmma"),
+                lambda: torch.empty((64, 60), dtype=torch.bfloat16), "packed"),
     "a_offset_2_bytes": (lambda: _offset_view(264, 136, 1),
-                         lambda: torch.empty((136, 328), dtype=torch.bfloat16), "wmma"),
+                         lambda: torch.empty((136, 328), dtype=torch.bfloat16), "packed"),
     "b_offset_8_bytes": (lambda: torch.empty((264, 136), dtype=torch.bfloat16),
-                         lambda: _offset_view(136, 328, 4), "wmma"),
+                         lambda: _offset_view(136, 328, 4), "packed"),
     "a_offset_16_bytes": (lambda: _offset_view(264, 136, 8),
                           lambda: torch.empty((136, 328), dtype=torch.bfloat16), "sm90"),
 }
@@ -116,7 +116,7 @@ _DISPATCH = {
 
 @pytest.mark.parametrize("case", sorted(_DISPATCH))
 def test_gemm_kernel_dispatch(case):
-    """Which kernel serves a product depends on shape and alignment alone."""
+    """Which route serves a product depends on shape and alignment alone."""
     make_a, make_b, want = _DISPATCH[case]
     a, b = make_a(), make_b()
     assert a.is_contiguous() and b.is_contiguous()
@@ -128,7 +128,7 @@ def test_kernel_matches_plain_on_cuda():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
     mm = gt.matmul_blocked
     # (M, K, N, block, A's offset in elements): the last case's A starts
-    # 2 bytes off 16-byte alignment, which only the wmma kernel takes.
+    # 2 bytes off 16-byte alignment, which only the packed route takes.
     cases = [(*c, 0) for c in _CASES.values()] + [(37, 13, 29, 1, 0), (264, 136, 328, 8, 1)]
     for m, k, n, blk, offset in cases:
         a, b = (t.cuda() for t in _bf16_pair(m, k, n, seed=k))
@@ -136,12 +136,38 @@ def test_kernel_matches_plain_on_cuda():
             a = torch.cat([a.flatten()[:offset], a.flatten()])[offset:].view(m, k)
         kernel = matmul.gemm_kernel(a, b)
         assert kernel == ("sm90" if k % 8 == n % 8 == 0 and a.data_ptr() % 16 == 0
-                          else "wmma")
-        before = (mm.launches, mm.launches_sm90, mm.launches_wmma)
+                          else "packed")
+        before = (mm.launches, mm.launches_sm90, mm.launches_packed)
         got = mm(a, b, bm=blk, bn=blk, bk=blk)
         torch.cuda.synchronize()
         sm90 = int(kernel == "sm90")
-        assert (mm.launches, mm.launches_sm90, mm.launches_wmma) == (
+        assert (mm.launches, mm.launches_sm90, mm.launches_packed) == (
             before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
         want = matmul.matmul_blocked_plain(a, b, bm=blk, bn=blk, bk=blk)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_packed_route_at_1001_on_cuda(offset):
+    """matrix_test's odd run, (1001, 1001) x (1001, 1001) with 7-blocks,
+    through the packed route: A as it is, and A as a view 2 bytes off
+    16-byte alignment. Two launches give the same bits; the product is
+    within 1e-5 of the largest entry of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
+    mm, n = gt.matmul_blocked, 1001
+    a, b = (t.cuda() for t in _bf16_pair(n, n, n, seed=n + offset))
+    if offset:
+        a = torch.cat([a.flatten()[:offset], a.flatten()])[offset:].view(n, n)
+        assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    assert matmul.gemm_kernel(a, b) == "packed"
+    before = (mm.launches, mm.launches_sm90, mm.launches_packed)
+    got = mm(a, b, bm=7, bn=7, bk=7)
+    again = mm(a, b, bm=7, bn=7, bk=7)
+    torch.cuda.synchronize()
+    assert (mm.launches, mm.launches_sm90, mm.launches_packed) == (
+        before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = matmul.matmul_blocked_plain(a, b, bm=7, bn=7, bk=7)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
