@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from gaussianrenderer_tpu_torch.ops.cuda.segment_sum import segment_sum_ordered
 from gaussianrenderer_tpu_torch.ops.projection import ProjectedGaussians
 from gaussianrenderer_tpu_torch.ops.tiling import TileAssignment
+from gaussianrenderer_tpu_torch.utils import trace
 
 #: Feature-row layout: one 16-float row per Gaussian.
 FEAT_CX = 0
@@ -102,7 +103,8 @@ class _GatherRowsSeg(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d):
         order, offsets = ctx.saved_tensors
-        return segment_sum_ordered(d.contiguous(), order, offsets), None, None, None
+        with trace.span("gather.bwd"):
+            return segment_sum_ordered(d.contiguous(), order, offsets), None, None, None
 
 
 def gather_sorted_features_seg(

@@ -72,6 +72,7 @@ from gaussianrenderer_tpu_torch.ops.compositing import (
     MD2_CLIP,
     T_EPS,
 )
+from gaussianrenderer_tpu_torch.utils import trace
 
 #: Stats rows per pixel: rgb (3), T_final, i_end (as f32), 3 zero rows.
 STATS_ROWS = 8
@@ -92,7 +93,7 @@ def chunk_offsets(
     aligned = (start // chunk) * chunk
     n = (start + tile_count.to(torch.int64) - aligned + chunk - 1) // chunk
     incl = torch.cumsum(n, 0)
-    total = int(incl[-1]) if n.numel() else 0
+    total = trace.host_read("chunk_rows", incl[-1]) if n.numel() else 0
     return (incl - n).to(torch.int32), total
 
 

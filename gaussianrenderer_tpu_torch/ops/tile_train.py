@@ -23,6 +23,7 @@ from gaussianrenderer_tpu_torch.ops.cuda.tile_train import (  # noqa: F401
     train_backward,
     train_forward,
 )
+from gaussianrenderer_tpu_torch.utils import trace
 
 
 def train_kernel_compatible(tile_w: int, tile_h: int) -> bool:
@@ -52,28 +53,29 @@ class _CompositeTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_fb):
-        sorted_feats, tile_start, tile_count, chk_offset, stats, chk = ctx.saved_tensors
-        g = ctx.geom
-        tiles_x, tiles_y, tile_w, tile_h = (
-            g["tiles_x"], g["tiles_y"], g["tile_w"], g["tile_h"]
-        )
-        fh, fw = tiles_y * tile_h, tiles_x * tile_w
-        _, h, w = d_fb.shape
-        # Cotangent rows per pixel on the padded tile grid (zero past the
-        # image): 0–2 dL/drgb, 3 dL/dT_final = −dL/dalpha, 4–7 zero.
-        rows = d_fb.new_zeros((STATS_ROWS, fh, fw))
-        rows[:3, :h, :w] = d_fb[:3]
-        if ctx.return_alpha:
-            rows[3, :h, :w] = -d_fb[3]
-        gout = (
-            rows.reshape(STATS_ROWS, tiles_y, tile_h, tiles_x, tile_w)
-            .permute(0, 1, 3, 2, 4)
-            .reshape(STATS_ROWS, tiles_x * tiles_y * tile_w * tile_h)
-            .contiguous()
-        )
-        d_feats = train_backward(sorted_feats, tile_start, tile_count, chk_offset,
-                                 gout, stats, chk, chunk=ctx.chunk, **g)
-        return (d_feats,) + (None,) * 10
+        with trace.span("compositor.bwd"):
+            sorted_feats, tile_start, tile_count, chk_offset, stats, chk = ctx.saved_tensors
+            g = ctx.geom
+            tiles_x, tiles_y, tile_w, tile_h = (
+                g["tiles_x"], g["tiles_y"], g["tile_w"], g["tile_h"]
+            )
+            fh, fw = tiles_y * tile_h, tiles_x * tile_w
+            _, h, w = d_fb.shape
+            # Cotangent rows per pixel on the padded tile grid (zero past the
+            # image): 0–2 dL/drgb, 3 dL/dT_final = −dL/dalpha, 4–7 zero.
+            rows = d_fb.new_zeros((STATS_ROWS, fh, fw))
+            rows[:3, :h, :w] = d_fb[:3]
+            if ctx.return_alpha:
+                rows[3, :h, :w] = -d_fb[3]
+            gout = (
+                rows.reshape(STATS_ROWS, tiles_y, tile_h, tiles_x, tile_w)
+                .permute(0, 1, 3, 2, 4)
+                .reshape(STATS_ROWS, tiles_x * tiles_y * tile_w * tile_h)
+                .contiguous()
+            )
+            d_feats = train_backward(sorted_feats, tile_start, tile_count, chk_offset,
+                                     gout, stats, chk, chunk=ctx.chunk, **g)
+            return (d_feats,) + (None,) * 10
 
 
 def composite_tiles_train(

@@ -37,6 +37,7 @@ import torch
 
 from gaussianrenderer_tpu_torch.ops.projection import ProjectedGaussians
 from gaussianrenderer_tpu_torch.ops.sort import pack_key
+from gaussianrenderer_tpu_torch.utils import trace
 
 
 class TileAssignment(NamedTuple):
@@ -96,7 +97,7 @@ def build_sorted_instances(
     depth_q = (depth01 * float((1 << depth_bits) - 1)).to(i64)
 
     # count → exclusive scan → one instance per rect tile, row-major.
-    total = int(area.sum())
+    total = trace.host_read("instances", area.sum())
     if total >= 2**31:
         raise ValueError(f"{total} instances exceed the int32 lane index")
     splat = torch.repeat_interleave(

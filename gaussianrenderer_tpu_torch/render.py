@@ -64,6 +64,7 @@ from gaussianrenderer_tpu_torch.ops.tile_train import (
 from gaussianrenderer_tpu_torch.ops.tiling import build_sorted_instances
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
+from gaussianrenderer_tpu_torch.utils import trace
 
 
 class RenderStats(NamedTuple):
@@ -118,34 +119,16 @@ def _render_impl(
     cam: CameraParams,
     cfg: RenderConfig,
     time_value: Optional[float] = None,
-    ndc_probe: Optional[torch.Tensor] = None,
     sat_state: Optional[torch.Tensor] = None,
 ):
-    """``render_frame`` with the training hook ``ndc_probe`` ((2, N)
-    zeros added to the NDC centers, whose gradient is the view-space
-    positional gradient; ``train.render_for_training``)."""
+    """The body of ``render_frame``. ``train.render_for_training`` takes
+    its two halves, :func:`_project` and :func:`_render_tile_sort`, apart."""
     if cfg.compositor not in ("packed", "xla", "diff"):
         raise ValueError(
             f"unknown compositor {cfg.compositor!r}; expected 'packed', 'xla', "
             "or 'diff'"
         )
-    scene, extra_opacity = slice_spacetime(scene, time_value)
-    proj = preprocess_gaussians(
-        scene,
-        cam,
-        width=cfg.width,
-        height=cfg.height,
-        tile_w=cfg.tile_w,
-        tile_h=cfg.tile_h,
-        tiles_x=cfg.tiles_x,
-        tiles_y=cfg.tiles_y,
-        sh_degree=cfg.sh_degree,
-        extra_opacity_scale=extra_opacity,
-        quantize_centers=cfg.quantize_centers,
-        ewa_dilation=cfg.ewa_dilation,
-        ewa_compensate=cfg.ewa_compensate,
-        ndc_probe=ndc_probe,
-    )
+    proj = _project(scene, cam, cfg, time_value)
     if cfg.compositor != "packed" or not cfg.packed_compatible:
         return _render_tile_sort(proj, cam, cfg)
 
@@ -212,23 +195,56 @@ def _render_impl(
     return _finish_fb(fb, cfg), stats
 
 
+def _project(scene: GaussianScene, cam: CameraParams, cfg: RenderConfig, time_value=None,
+             ndc_probe: Optional[torch.Tensor] = None):
+    """``slice_spacetime`` + ``preprocess_gaussians`` under ``cfg``, with the
+    training hook ``ndc_probe`` ((2, N) zeros added to the NDC centers,
+    whose gradient is the view-space positional gradient)."""
+    scene, extra_opacity = slice_spacetime(scene, time_value)
+    return preprocess_gaussians(
+        scene,
+        cam,
+        width=cfg.width,
+        height=cfg.height,
+        tile_w=cfg.tile_w,
+        tile_h=cfg.tile_h,
+        tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y,
+        sh_degree=cfg.sh_degree,
+        extra_opacity_scale=extra_opacity,
+        quantize_centers=cfg.quantize_centers,
+        ewa_dilation=cfg.ewa_dilation,
+        ewa_compensate=cfg.ewa_compensate,
+        ndc_probe=ndc_probe,
+    )
+
+
 def _render_tile_sort(proj, cam: CameraParams, cfg: RenderConfig):
     """The f32 tile-sort path: sorted instances, gathered feature rows and
     the xla, diff or training compositor; returns ``(fb, stats)``."""
     want_alpha = cfg.output_alpha or cfg.background is not None
     want_depth = cfg.output_depth
-    assignment = build_sorted_instances(
-        proj, tiles_x=cfg.tiles_x, num_tiles=cfg.num_tiles, near=cam.near,
-        far=cam.far,
-    )
-    feats = build_features(proj)
+    with trace.span("tiling"):
+        assignment = build_sorted_instances(
+            proj, tiles_x=cfg.tiles_x, num_tiles=cfg.num_tiles, near=cam.near,
+            far=cam.far,
+        )
     geom = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_w,
                 tile_h=cfg.tile_h, width=cfg.width, height=cfg.height,
                 chunk_size=cfg.chunk_size, return_alpha=want_alpha)
     ranges = (assignment.tile_start, assignment.tile_count)
-    if cfg.compositor == "diff":
-        sorted_feats = gather_sorted_features_seg(feats, assignment, cfg.chunk_size)
-        if (
+    diff = cfg.compositor == "diff"
+    with trace.span("gather"):
+        feats = build_features(proj)
+        # "packed" takes the plain gather only on a grid that is not
+        # packed-compatible.
+        gather = gather_sorted_features_seg if diff else gather_sorted_features
+        sorted_feats = gather(feats, assignment, cfg.chunk_size)
+    with trace.span("compositor"):
+        if not diff:
+            fb = composite_tiles_xla(sorted_feats, *ranges, **geom,
+                                     return_depth=want_depth)
+        elif (
             cfg.diff_kernel
             and train_kernel_compatible(cfg.tile_w, cfg.tile_h)
             and not want_depth
@@ -238,11 +254,6 @@ def _render_tile_sort(proj, cam: CameraParams, cfg: RenderConfig):
             fb = composite_tiles_diff(sorted_feats, *ranges, **geom,
                                       max_chunks=cfg.diff_max_chunks,
                                       return_depth=want_depth)
-    else:
-        # "packed" lands here only on a grid that is not packed-compatible.
-        sorted_feats = gather_sorted_features(feats, assignment, cfg.chunk_size)
-        fb = composite_tiles_xla(sorted_feats, *ranges, **geom,
-                                 return_depth=want_depth)
     stats = RenderStats(
         num_culled=proj.valid.sum(),
         num_instances=assignment.total_instances,

@@ -49,9 +49,10 @@ from gaussianrenderer_tpu_torch._device import resolve_device
 from gaussianrenderer_tpu_torch.config import RenderConfig
 from gaussianrenderer_tpu_torch.ops.projection import preprocess_gaussians, slice_spacetime
 from gaussianrenderer_tpu_torch.ops.cuda import prng
-from gaussianrenderer_tpu_torch.render import _render_impl
+from gaussianrenderer_tpu_torch.render import _project, _render_tile_sort
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
+from gaussianrenderer_tpu_torch.utils import trace
 
 
 class SceneParams(NamedTuple):
@@ -111,14 +112,17 @@ def render_for_training(
     """Differentiable forward render of trainable parameters, at an
     optional time for spacetime scenes. ``ndc_probe``: optional (2, N)
     zeros whose gradient is the view-space center gradient."""
-    fb, _ = _render_impl(params.to_scene(), cam, _training_config(cfg), time_value,
-                         ndc_probe=ndc_probe)
+    tcfg = _training_config(cfg)
+    with trace.span("projection"):
+        proj = _project(params.to_scene(), cam, tcfg, time_value, ndc_probe)
+    fb, _ = _render_tile_sort(proj, cam, tcfg)
     return fb
 
 
 def mse_loss(params, cam, target, cfg, time_value=None, ndc_probe=None):
     fb = render_for_training(params, cam, cfg, time_value, ndc_probe)
-    return torch.mean((fb - target) ** 2)
+    with trace.span("loss"):
+        return torch.mean((fb - target) ** 2)
 
 
 def _gauss_window(size: int = 11, sigma: float = 1.5, device="cpu") -> torch.Tensor:
@@ -168,9 +172,10 @@ def l1_dssim_loss(params, cam, target, cfg, time_value=None, ndc_probe=None,
                   ssim_weight: float = 0.2):
     """(1−λ)·L1 + λ·(1−SSIM)/2, λ = 0.2 (Kerbl et al. 2023, §5)."""
     fb = render_for_training(params, cam, cfg, time_value, ndc_probe)
-    l1 = torch.mean(torch.abs(fb - target))
-    dssim = (1.0 - ssim(fb, target)) / 2.0
-    return (1.0 - ssim_weight) * l1 + ssim_weight * dssim
+    with trace.span("loss"):
+        l1 = torch.mean(torch.abs(fb - target))
+        dssim = (1.0 - ssim(fb, target)) / 2.0
+        return (1.0 - ssim_weight) * l1 + ssim_weight * dssim
 
 
 # ------------------------------------------------------------------ Adam
@@ -355,6 +360,10 @@ def _make_step_fn(cfg: RenderConfig, optimizer: "Adam", loss_fn, *, timed: bool,
     n_in = 2 + int(timed) + int(densify)
 
     def step(params: SceneParams, opt_state: AdamState, *rest):
+        with trace.span("step"):
+            return body(params, opt_state, *rest)
+
+    def body(params: SceneParams, opt_state: AdamState, *rest):
         if len(rest) != n_in:
             raise TypeError(
                 ("make_train_step" if not densify else "_make_step_fn(densify=True)")
@@ -376,7 +385,8 @@ def _make_step_fn(cfg: RenderConfig, optimizer: "Adam", loss_fn, *, timed: bool,
             live.append(probe)
         else:
             loss = loss_fn(leaves, cam, target, cfg, *extra)
-        grads = iter(torch.autograd.grad(loss, live, allow_unused=True))
+        with trace.span("backward"):
+            grads = iter(torch.autograd.grad(loss, live, allow_unused=True))
         grads_tree = SceneParams(*(
             None if p is None else _or_zeros(next(grads), p) for p in leaves
         ))
@@ -387,9 +397,10 @@ def _make_step_fn(cfg: RenderConfig, optimizer: "Adam", loss_fn, *, timed: bool,
                     params.to_scene(), cam, _training_config(cfg),
                     extra[0] if extra else None,
                 )
-            updates, opt_state = optimizer.update(grads_tree, opt_state, params)
-            params = apply_updates(SceneParams(*(
-                None if p is None else p.detach() for p in params)), updates)
+            with trace.span("optimizer"):
+                updates, opt_state = optimizer.update(grads_tree, opt_state, params)
+                params = apply_updates(SceneParams(*(
+                    None if p is None else p.detach() for p in params)), updates)
             if densify:
                 dstate = accumulate_densify_stats(dstate, view_grads, visible)
                 return params, opt_state, dstate, loss.detach(), needed
