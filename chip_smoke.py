@@ -68,8 +68,8 @@ its elapsed seconds:
                       rank's frame within 2e-4 of render_frame on that
                       rank, gather32 on the xla compositor within 2e-5, no
                       overflow, the strips' instances adding up to the
-                      single device's, one compositor launch per rank per
-                      frame; then a one-rank NCCL group, bit-equal to
+                      single device's, one compositor and one SH colour
+                      launch per rank per frame; then a one-rank NCCL group, bit-equal to
                       render_frame. Per rank: synchronized frame ms, each
                       exchange's bytes and ms alone, instances, launches;
 9. native-io       — data/trained_500k.ply and data/trained_100k.ply loaded
@@ -106,7 +106,9 @@ its elapsed seconds:
                       to the CPU's index_add_ and across two launches;
                       both calls' ms in turns with one index_add_'s, the
                       kernel's device ms, the plain version's and the
-                      bound;
+                      bound; the SH colour (ops/cuda/sh_color.py) on
+                      that step's splats and camera at SH degree 1, as
+                      in sh-color-2m;
 11. train-500k       — the training main path: ``make_train_step`` with
                       ``make_3dgs_optimizer`` and ``l1_dssim_loss`` on
                       data/trained_500k.ply at 640×480 (the fitting
@@ -114,7 +116,8 @@ its elapsed seconds:
                       are the file's own renders, from a seeded
                       perturbation: loss finite and falling, no NaN
                       gradient, one launch of each kernel (and of the
-                      segment sum) per step; from one state, twice: every
+                      segment sum) per step, one forward and one backward
+                      launch of the SH colour; from one state, twice: every
                       gradient, the NDC gradient, the loss and a step's
                       params and Adam moments bit for bit equal; step
                       ms, CUDA-event stage ms, PSNR before and after, and
@@ -136,7 +139,9 @@ its elapsed seconds:
                       each, in turns), one ``densify_step`` episode's
                       CUDA-event ms (checked free of host waits) and
                       ``evaluate`` ms per view; one launch of the
-                      densify draw an episode;
+                      densify draw an episode; three of the SH colour a
+                      step (a densifying step projects again without the
+                      gradient) and one per evaluated view;
 13. densify-draw    — the densify draw (ops/cuda/prng.py, JAX's
                       threefry2x32, uniform and erf_inv) at (500000, 3):
                       the kernel's bits and uniforms bit-equal to its
@@ -165,8 +170,8 @@ its elapsed seconds:
                       step's gradients within 1e-3 of the single-device
                       step's (MSE, the 3DGS Adam), 10 steps from the seeded
                       perturbation with losses finite and falling and one
-                      forward and one backward train-kernel call per rank
-                      per step; then fit_scene(mesh) for 20 steps with
+                      forward and one backward train-kernel call and SH
+                      colour launch per rank per step; then fit_scene(mesh) for 20 steps with
                       checkpoints at 10 and 20, resumed from 10 (losses
                       and params bit for bit), rank 0's last checkpoint read by a
                       single-device load_checkpoint equal to every rank's
@@ -182,7 +187,20 @@ its elapsed seconds:
                       and .splat (save and load timed), each reload's
                       first frame scored against the original's: q16
                       > 55 dB, .splat > 35 dB at SH degree 0, q8 printed;
-17. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
+17. sh-color-2m     — the SH colour kernels (ops/cuda/sh_color.py) on
+                      data/trained_2m.gsz's splats at SH 3 (the file's
+                      SH 1 and seeded bands 2–3, the benchmark's 48
+                      coefficients) from the viewer's pose, with a
+                      seeded cotangent,
+                      against the plain chain (ops/sh.view_color under
+                      autograd): colour and coefficient gradient bit-equal,
+                      the position gradient within 2e-5 of each row's
+                      scale of the float64 twin of the kernel's backward
+                      (tests/test_torch_sh_color.py), two backward calls
+                      bit-equal, one launch each way; each kernel's ms in
+                      a burst and its device ms beside its bound (bytes),
+                      the plain chain's forward and forward + backward ms;
+18. colmap-fit      — a COLMAP workspace written by save_colmap_workspace
                       from 12 orbit views of data/trained_surface_100k.gsz
                       at 1280×720 and a points3D cloud of 20,000 of its
                       positions and DC colours (read by the native reader
@@ -195,14 +213,14 @@ its elapsed seconds:
                       overflow_views 0); apps/edit to a pruned .gsz
                       (--min-opacity 0.005) and apps/eval of it; each
                       app's wall time and the kernels' launches in them;
-18. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
+19. blender-fit     — a NeRF-synthetic capture: transforms_train.json (12
                       views) and transforms_test.json (4) with RGBA PNGs
                       of the same scene at 800×800 (alpha from the
                       render's alpha row, camera_angle_x); apps/fit
                       refining the scene (--init, --background white, 40
                       steps) and apps/eval of the test split over white
                       (exit 0, finite PSNR);
-19. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
+20. viewer-2m       — the viewer on the card: viewer.Canvas at 1920×1080
                       with a prewarm (its thread ends without an error)
                       and data/trained_2m.gsz loaded by load_gaussians
                       at formats-2m's pose; its frame bit-equal to
@@ -229,12 +247,13 @@ its elapsed seconds:
                       apps/fit --serve 0 --serve-every 10 for 20 steps
                       on fit-app's dataset with the monitor polled
                       (step 20 of 20, a PNG of the dataset's size);
-                      the compositor's launches equal to the frames,
-                      the train kernels' calls counted;
-20. train-bench-shape
+                      the compositor's launches equal to the frames, as
+                      the SH colour's in the Canvas frames, the train
+                      kernels' calls counted;
+21. train-bench-shape
                     — step ms at tools/train_bench.py's shape (500k
                       random splats, 800×800, Adam 1e-2, MSE).
-21. gemm            — the GEMM harness: the port's apps/matrix_test at
+22. gemm            — the GEMM harness: the port's apps/matrix_test at
                       N = 8192 on random and on ones inputs, both served
                       by the wgmma + TMA kernel straight from the inputs
                       (``sm90``), and at the odd N = 1001, served by the
@@ -251,7 +270,7 @@ its elapsed seconds:
                       bound (at 1001³ in turns with torch.mm, and each
                       kernel's device ms by torch.profiler), TFLOP/s,
                       launches per route;
-22. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
+23. block-sort      — block_sort_runs at C = 5,586,944 (bench_3m's
                       instances rounded up to run 2048): one call, one
                       kernel launch; the kernels bit-equal to their plain
                       version on all 9 rows for random u32 keys (half ≥
@@ -259,14 +278,14 @@ its elapsed seconds:
                       rounded up to a multiple of the run); kernel, plain
                       and library (torch.sort of the key view + one
                       gather) ms beside the bound, kernel launches a call;
-23. sort-harness    — the port's apps/onesweep and apps/radix_test with
+24. sort-harness    — the port's apps/onesweep and apps/radix_test with
                       their defaults on the card: exit 0, every JSONL
                       record (build/radix_bench_port.jsonl) true on its
                       checks.
 
-Then one JSON line of per-kernel numbers (nine kernels: the GEMM's two
-routes, and the segment sum and the densify draw, which replace no TPU
-kernel),
+Then one JSON line of per-kernel numbers (ten kernels: the GEMM's two
+routes, and the segment sum, the densify draw and the SH colour, which
+replace no TPU kernel),
 the card line
 again, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero without the ok line. Logs go
@@ -392,6 +411,12 @@ PRNG_BURST = 100
 #: within this of 1 + |value| (a few ulp of the normals and of each
 #: device's quaternion norm and log).
 DRAW_EPISODE_REL = 1e-5
+#: The SH colour (ops/cuda/sh_color.py): the position gradient against the
+#: float64 twin of the kernel's backward, per row, over the row's sum of
+#: absolute terms (tests/test_torch_sh_color_card.py holds the same).
+SH_DPOS_TOL = 2e-5
+#: Calls in one back-to-back timing of each SH colour kernel.
+SH_BURST = 20
 #: The fit-app dataset: views on the training orbit, 640×480 .npy targets.
 FIT_APP_VIEWS = 8
 #: fp32 operations per (in-image pixel, walked lane) pair of the train
@@ -1780,6 +1805,133 @@ def phase_segment_sum(torch, rows, ids, n, slot, start):
     return res
 
 
+def sh_color_bound_ms(n, w):
+    """Least time of each SH colour kernel for ``n`` splats of ``w`` f32
+    coefficients on an H100, (forward, backward): bytes over the HBM
+    peak. The forward reads the coefficients, the positions and the
+    camera and writes the colour; the backward reads the same and the
+    cotangent and writes the coefficient and position gradients. Its
+    ~0.5k float operations a splat are far below the fp32 peak."""
+    fwd = n * (w * 4 + 12 + 12) + 12
+    bwd = n * (w * 4 + 12 + 12 + w * 4 + 12) + 12
+    return fwd / PEAK_HBM_BYTES * 1e3, bwd / PEAK_HBM_BYTES * 1e3
+
+
+def phase_sh_color(torch, label, positions, sh, cam_position, degree):
+    """The SH colour kernels (``ops/cuda/sh_color.py``) against the plain
+    chain (``ops/sh.view_color`` under autograd) on a scene's splats seen
+    from one camera, to SH ``degree``, with a seeded cotangent: the colour
+    and the coefficient gradient bit-equal (NaN where NaN: the files hold
+    a few splats with NaN parameters), the position gradient of the
+    finite splats within SH_DPOS_TOL of each row's scale of the float64
+    twin of the kernel's backward (tests/test_torch_sh_color.py) and
+    within twice that of the plain chain's, two backward calls bit-equal,
+    one launch each way; each kernel's ms in a burst of SH_BURST
+    launches and its device ms (torch.profiler) beside its bound, the pair
+    through autograd and the plain chain's forward and forward + backward
+    in turns."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from test_torch_sh_color import clamp_mask, twin_backward
+
+    from gaussianrenderer_tpu_torch import _build
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
+    from gaussianrenderer_tpu_torch.ops.sh import view_color
+
+    f32 = torch.float32
+    pos = positions.detach().to(f32).contiguous()
+    coeffs = sh.detach().to(f32).contiguous()
+    cam = cam_position.detach().to(f32).contiguous()
+    n, w = coeffs.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    g = torch.randn((n, 3), generator=gen, device=DEVICE)
+
+    def grads(fn):
+        p, q = pos.clone().requires_grad_(True), coeffs.clone().requires_grad_(True)
+        colour = fn(p, q, cam, degree)
+        dp, dq = torch.autograd.grad(colour, (p, q), g, allow_unused=True)
+        return colour.detach(), torch.zeros_like(pos) if dp is None else dp, dq
+
+    before = shc.sh_color.launches
+    colour, dpos, dsh = grads(shc.sh_color)
+    torch.cuda.synchronize()
+    launched = shc.sh_color.launches - before
+    _, dpos2, dsh2 = grads(shc.sh_color)
+    p_colour, p_dpos, p_dsh = grads(view_color)
+    finite = torch.isfinite(pos).all(1) & torch.isfinite(coeffs).all(1)
+    fp, fq = pos[finite], coeffs[finite]
+    _, twin, scale = twin_backward(fp.double(), fq.double(), cam.double(), degree,
+                                   g[finite].double(), mask=clamp_mask(fp, fq, cam, degree))
+    bound = SH_DPOS_TOL * scale[:, None]
+    vs_twin = (dpos[finite].double() - twin).abs()
+    vs_plain = (dpos[finite].double() - p_dpos[finite].double()).abs()
+    res = {
+        "scene": label, "n": n, "coefficients": w, "degree": degree,
+        "finite_splats": int(finite.sum()),
+        "launches_of_one_call": launched,
+        "colour_bit_equal": same_bits(torch, colour, p_colour),
+        "dsh_bit_equal": same_bits(torch, dsh, p_dsh),
+        "dpos_within_tol_of_twin": bool((vs_twin <= bound).all()),
+        "dpos_within_2tol_of_plain": bool((vs_plain <= 2 * bound).all()),
+        "dpos_max_over_row_scale_vs_twin": float((vs_twin / scale.clamp_min(1e-30)[:, None])
+                                                 .max()) if n else 0.0,
+        "two_backward_calls_bit_equal": (same_bits(torch, dpos, dpos2)
+                                         and same_bits(torch, dsh, dsh2)),
+    }
+    del dpos2, dsh2, p_dpos, p_dsh, twin, scale, bound, vs_twin, vs_plain, fp, fq
+
+    # Each kernel alone: launches back to back through the C entry point
+    # (no allocation, no autograd), so the card, not the host, sets the pace.
+    lib = _build.load("sh_color")
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    stored = math.isqrt(w // 3) - 1  # w = 3·(stored + 1)²
+    colour_out, dsh_out, dpos_out = (torch.empty_like(pos), torch.empty_like(coeffs),
+                                     torch.empty_like(pos))
+    # The colour does not depend on the position at degree 0: no dpos.
+    dpos_ptr = dpos_out.data_ptr() if degree > 0 else None
+
+    def fwd():
+        for _ in range(SH_BURST):
+            check(lib.gr_sh_color_fwd(pos.data_ptr(), coeffs.data_ptr(), cam.data_ptr(), n,
+                                      stored, degree, colour_out.data_ptr(), stream) == 0,
+                  f"sh colour {label}: a forward launch failed")
+
+    def bwd():
+        for _ in range(SH_BURST):
+            check(lib.gr_sh_color_bwd(pos.data_ptr(), coeffs.data_ptr(), cam.data_ptr(),
+                                      g.data_ptr(), n, stored, degree, dsh_out.data_ptr(),
+                                      dpos_ptr, stream) == 0,
+                  f"sh colour {label}: a backward launch failed")
+
+    res["fwd_ms"] = cuda_ms(torch, fwd, 3) / SH_BURST
+    res["bwd_ms"] = cuda_ms(torch, bwd, 3) / SH_BURST
+    res["timed"] = f"CUDA events, bursts of {SH_BURST} launches back to back, median of 3"
+    check(same_bits(torch, colour_out, colour) and same_bits(torch, dsh_out, dsh),
+          f"sh colour {label}: the C entry points differ from the autograd function")
+    del colour_out, dsh_out, dpos_out
+    pair, plain_fwd, plain = cuda_ms_turns(torch, [
+        lambda: grads(shc.sh_color),
+        lambda: view_color(pos, coeffs, cam, degree),
+        lambda: grads(view_color),
+    ], 5)
+    res.update({"pair_autograd_ms": pair, "plain_fwd_ms": plain_fwd, "plain_ms": plain,
+                "pair_includes": "two input clones, as the plain chain's",
+                "device_ms": pass_ms(torch, lambda: grads(shc.sh_color)) or "not measured"})
+    res["fwd_bound_ms"], res["bwd_bound_ms"] = sh_color_bound_ms(n, w)
+    res["bound_by"] = "bytes"
+    out({"sh_color": res})
+    check(launched == (2 if n else 0), f"sh colour {label}: {launched} launches in one call")
+    check(res["colour_bit_equal"], f"sh colour {label}: the colour differs from the plain chain's")
+    check(res["dsh_bit_equal"],
+          f"sh colour {label}: the coefficient gradient differs from the plain chain's")
+    check(res["dpos_within_tol_of_twin"] and res["dpos_within_2tol_of_plain"],
+          f"sh colour {label}: the position gradient "
+          f"{res['dpos_max_over_row_scale_vs_twin']:.3g} of its row's scale from the twin")
+    check(res["two_backward_calls_bit_equal"], f"sh colour {label}: two backward calls differ")
+    return res
+
+
 def launches_per_call(torch, fn, counter):
     """Kernel launches one ``fn()`` makes, read off ``counter.kernel_launches``."""
     before = counter.kernel_launches
@@ -1895,11 +2047,12 @@ def phase_train(torch, gt, scene, card):
     3DGS optimizer and l1_dssim_loss on data/trained_500k.ply at 640×480,
     TRAIN_STEPS steps cycling TRAIN_POSES views whose targets are the
     fitted params' own renders, from a seeded perturbation. Counts of
-    both train kernels and the segment sum are set to 0 just before the
-    steps and read just after. Then the step twice from one state
+    both train kernels, the segment sum and the SH colour are set to 0
+    just before the steps and read just after. Then the step twice from one state
     (phase_train_repro) and CUDA-event stage times of one step."""
     from gaussianrenderer_tpu_torch.ops.compositing import gather_sorted_features_seg
     from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
     from gaussianrenderer_tpu_torch.train import apply_updates
 
@@ -1923,7 +2076,7 @@ def phase_train(torch, gt, scene, card):
     losses, step_ms = [], []
     tt.train_forward.launches = tt.train_backward.launches = 0
     tt.train_forward.kernel_launches = tt.train_backward.kernel_launches = 0
-    seg.segment_sum.launches = 0
+    seg.segment_sum.launches = shc.sh_color.launches = 0
     for s in range(TRAIN_STEPS):
         i = s % TRAIN_POSES
         (params, state, loss), ms = host_ms(
@@ -1932,7 +2085,7 @@ def phase_train(torch, gt, scene, card):
         step_ms.append(ms)
     launches = {"tile_train_fwd": tt.train_forward.launches,
                 "tile_train_bwd": tt.train_backward.launches}
-    seg_launches = seg.segment_sum.launches
+    seg_launches, sh_launches = seg.segment_sum.launches, shc.sh_color.launches
     kernel_launches = {"tile_train_fwd": tt.train_forward.kernel_launches,
                        "tile_train_bwd": tt.train_backward.kernel_launches}
 
@@ -1945,6 +2098,10 @@ def phase_train(torch, gt, scene, card):
           f"train-500k: kernel launches {kernel_launches} in {TRAIN_STEPS} steps")
     check(seg_launches == TRAIN_STEPS,
           f"train-500k: {seg_launches} segment-sum launches in {TRAIN_STEPS} steps")
+    # One forward and one backward a step: a CUDA tensor never takes the
+    # plain chain.
+    check(sh_launches == 2 * TRAIN_STEPS,
+          f"train-500k: {sh_launches} SH colour launches in {TRAIN_STEPS} steps")
     # The file holds a few splats with NaN parameters (never valid, zero
     # gradient): every parameter that was finite must stay finite.
     check(all(bool(torch.isfinite(p)[torch.isfinite(p0)].all())
@@ -2039,6 +2196,7 @@ def phase_train(torch, gt, scene, card):
         "kernel_launches": launches,
         "kernel_launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
         "segment_sum_launches": seg_launches,
+        "sh_color_launches": sh_launches,
         "two_runs_bit_equal": all(all(v.values()) for v in repro.values()),
         "kernels_launched_by_the_calls": kernel_launches,
         "psnr_db_before": psnr_before, "psnr_db_after": psnr_after,
@@ -2086,13 +2244,16 @@ def phase_fit(torch, gt, scene, card):
     every FIT_CHECKPOINT_EVERY; then evaluate on the views, the same fit
     again and a resume from the first checkpoint, both bit-equal to the
     first run (losses, episodes, final params). Counts of both train
-    kernels and the segment sum are set to 0 just before the fit and read
-    just after, and again after evaluate. Then the densifying step
+    kernels, the segment sum, the draw and the SH colour are set to 0 just
+    before the fit and read just after, and again after evaluate (each
+    fit step projects twice: with the gradient, then without it for the
+    densify statistics). Then the densifying step
     against the plain step in turns, and one densify_step episode (with
     no host wait: sync debug mode)."""
     from gaussianrenderer_tpu_torch import train as ptrain
     from gaussianrenderer_tpu_torch.ops.cuda import prng
     from gaussianrenderer_tpu_torch.ops.cuda import segment_sum as seg
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     cfg = train_500k_config(gt)
@@ -2116,7 +2277,7 @@ def phase_fit(torch, gt, scene, card):
         at_checkpoint.setdefault(step, params)
 
     tt.train_forward.launches = tt.train_backward.launches = seg.segment_sum.launches = 0
-    prng.launches = 0
+    prng.launches = shc.sh_color.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fitted, hist = gt.fit_scene(views, cfg, start, optimizer=optimizer(), checkpoint_dir=ck,
@@ -2127,12 +2288,14 @@ def phase_fit(torch, gt, scene, card):
     fit_launches = {"tile_train_fwd": tt.train_forward.launches,
                     "tile_train_bwd": tt.train_backward.launches,
                     "segment_sum": seg.segment_sum.launches,
-                    "prng": prng.launches}
+                    "prng": prng.launches,
+                    "sh_color": shc.sh_color.launches}
     t0 = time.perf_counter()
     report = gt.evaluate(fitted, views, cfg)
     evaluate_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = {"tile_train_fwd": tt.train_forward.launches - fit_launches["tile_train_fwd"],
-                     "tile_train_bwd": tt.train_backward.launches - fit_launches["tile_train_bwd"]}
+                     "tile_train_bwd": tt.train_backward.launches - fit_launches["tile_train_bwd"],
+                     "sh_color": shc.sh_color.launches - fit_launches["sh_color"]}
 
     losses, episodes = hist["losses"], hist["densify"]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
@@ -2238,12 +2401,14 @@ def phase_fit(torch, gt, scene, card):
               for p, p0 in zip(fitted, start) if p is not None),
           "fit-500k: a finite parameter became non-finite")
     check(fit_launches == {"tile_train_fwd": FIT_STEPS, "tile_train_bwd": FIT_STEPS,
-                           "segment_sum": FIT_STEPS, "prng": len(episodes)},
+                           "segment_sum": FIT_STEPS, "prng": len(episodes),
+                           "sh_color": 3 * FIT_STEPS},
           f"fit-500k: kernel calls {fit_launches} in {FIT_STEPS} steps, "
           f"{len(episodes)} episodes")
     check(first_episode.get("kwargs", {}).get("seed") == FIT_DENSIFY_EVERY,
           f"fit-500k: first episode's inputs {first_episode.get('kwargs')}")
-    check(eval_launches == {"tile_train_fwd": len(views), "tile_train_bwd": 0},
+    check(eval_launches == {"tile_train_fwd": len(views), "tile_train_bwd": 0,
+                            "sh_color": len(views)},
           f"fit-500k: evaluate's train kernel calls {eval_launches}")
     check(report["psnr"] > psnr_start,
           f"fit-500k: PSNR {report['psnr']:.3f} not above the start's {psnr_start:.3f}")
@@ -3134,6 +3299,7 @@ def phase_viewer_2m(torch, gt, card, poses_dir):
 
     from gaussianrenderer_tpu_torch import viewer, web_viewer
     from gaussianrenderer_tpu_torch.apps import cull_sort_test, fit
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     root = fit_dir("chip_smoke_viewer")
@@ -3141,6 +3307,7 @@ def phase_viewer_2m(torch, gt, card, poses_dir):
     procs = []
     try:
         comp.launches = tt.train_forward.launches = tt.train_backward.launches = 0
+        shc.sh_color.launches = 0
         canvas = viewer.Canvas(VIEWER_H, VIEWER_W, device=DEVICE)
         canvas.init(prewarm=True, resize_buckets=(VIEWER_RESIZE,))
         canvas._prewarm_thread.join(timeout=600)
@@ -3162,11 +3329,12 @@ def phase_viewer_2m(torch, gt, card, poses_dir):
                                                                device=DEVICE), canvas.cfg)
         check(torch.equal(fb, ref) and int(st.num_instances) == int(ref_st.num_instances),
               "viewer-2m: the Canvas frame differs from render_frame's")
-        before = comp.launches
+        before, sh_before = comp.launches, shc.sh_color.launches
         frame_ms = [host_ms(torch, canvas.render)[1] for _ in range(VIEWER_FRAMES)]
-        check(comp.launches - before == VIEWER_FRAMES,
-              f"viewer-2m: {comp.launches - before} compositor launches in "
-              f"{VIEWER_FRAMES} frames")
+        check(comp.launches - before == VIEWER_FRAMES
+              and shc.sh_color.launches - sh_before == VIEWER_FRAMES,
+              f"viewer-2m: {comp.launches - before} compositor and "
+              f"{shc.sh_color.launches - sh_before} SH colour launches in {VIEWER_FRAMES} frames")
 
         server = web_viewer.make_server(canvas, port=0)
         port = server.server_address[1]
@@ -3398,7 +3566,8 @@ def phase_viewer_2m(torch, gt, card, poses_dir):
             stop_process(proc)
             err.close()
     launches = {"tile_render2": comp.launches, "tile_train_fwd": tt.train_forward.launches,
-                "tile_train_bwd": tt.train_backward.launches}
+                "tile_train_bwd": tt.train_backward.launches,
+                "sh_color": shc.sh_color.launches}
     # Every frame of the phase's canvases (and the one render_frame beside
     # them) launched the compositor once.
     frames = canvas_frames + GR_RENDER_FRAMES + session_frames + 1
@@ -3834,6 +4003,8 @@ def mc_frames_rank(mesh, cases, with_xla, frames):
     frames. With ``with_xla`` also the gather32 frame on the xla
     compositor against the single-device xla frame."""
     torch, dist, gt, par, mc = mc_modules()
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
+
     scene, cam, cfg = bench_3m_setup(device=mesh.device)
     camp = cam.params(cfg.k_sigma, device=mesh.device)
     ref, ref_stats = gt.render_frame(scene, camp, cfg)
@@ -3844,14 +4015,14 @@ def mc_frames_rank(mesh, cases, with_xla, frames):
            "single_instances": single_instances, "shard_splats": shard.num_gaussians,
            "shape": list(ref.shape)}
     for label, kw in cases:
-        comp.launches = gt.table_lookup.launches = 0
+        comp.launches = gt.table_lookup.launches = shc.sh_color.launches = 0
         fb, stats = par.render_frame_multichip(shard, camp, cfg, mesh, **kw)
         torch.cuda.synchronize()
         instances = int(mc.last_frame["instances"])
         frame = {k: v for k, v in mc.last_frame.items() if k != "instances"}
         ms = mc_synced_ms(torch, dist, mesh, lambda: par.render_frame_multichip(
             shard, camp, cfg, mesh, **kw), frames)
-        launches = comp.launches
+        launches, sh_launches = comp.launches, shc.sh_color.launches
         res[label] = {
             "max_abs_err": float((fb - ref).abs().max()),
             "finite": bool(torch.isfinite(fb).all()),
@@ -3862,6 +4033,7 @@ def mc_frames_rank(mesh, cases, with_xla, frames):
             "frame_ms_median": statistics.median(ms),
             "frame_ms_all": ms,
             "launches": launches,
+            "sh_color_launches": sh_launches,
             "lookup_launches": gt.table_lookup.launches,
             "bytes": frame,
             "exchange": mc_exchange_ms(torch, dist, mc, mesh, shard, camp, cfg,
@@ -3886,6 +4058,9 @@ def mc_check_frames(label, results, cases, atol):
             check(c["max_abs_err"] <= atol, f"{name}: {c['max_abs_err']} from render_frame")
             check(c["launches"] == MC_FRAMES + 1,
                   f"{name}: {c['launches']} compositor launches in {MC_FRAMES + 1} frames")
+            check(c["sh_color_launches"] == MC_FRAMES + 1,
+                  f"{name}: {c['sh_color_launches']} SH colour launches in "
+                  f"{MC_FRAMES + 1} frames")
             check(c["lookup_launches"] == 0, f"{name}: lookups on the unculled path")
     for case, _ in cases:
         # Strips partition the tiles: their instances add up exactly.
@@ -3940,14 +4115,19 @@ def phase_multichip_3m(torch, gt, big, card):
         check(d1[0]["backend"] == "nccl" and c["max_abs_err"] == 0.0,
               f"one-rank NCCL {case}: {c['max_abs_err']} from render_frame")
         check(c["instances"] == d1[0]["single_instances"], f"one-rank NCCL {case}: instances")
-        check(c["launches"] == MC_NCCL_FRAMES + 1,
-              f"one-rank NCCL {case}: {c['launches']} launches in {MC_NCCL_FRAMES + 1} frames")
+        check(c["launches"] == MC_NCCL_FRAMES + 1 and c["sh_color_launches"] == c["launches"],
+              f"one-rank NCCL {case}: {c['launches']} compositor and "
+              f"{c['sh_color_launches']} SH colour launches in {MC_NCCL_FRAMES + 1} frames")
     launches = {"d2": {c: [r[c]["launches"] for r in d2] for c, _ in eq_cases},
                 "d4": {c: [r[c]["launches"] for r in d4] for c, _ in bal_cases},
                 "nccl": {c: d1[0][c]["launches"] for c, _ in eq_cases}}
     res.update({"d2": d2, "d4": d4, "nccl": d1, "launches": launches,
                 "kernel_launches": sum(v for g in ("d2", "d4") for c in launches[g].values()
-                                       for v in c) + sum(launches["nccl"].values())})
+                                       for v in c) + sum(launches["nccl"].values()),
+                "sh_color_launches": sum(r[c]["sh_color_launches"]
+                                         for rs, cs in ((d2, eq_cases), (d4, bal_cases),
+                                                        (d1, eq_cases))
+                                         for r in rs for c, _ in cs)})
     return res
 
 
@@ -3977,6 +4157,7 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
 
     torch, dist, gt, par, mc = mc_modules()
     from gaussianrenderer_tpu_torch import train as ptrain
+    from gaussianrenderer_tpu_torch.ops.cuda import sh_color as shc
     from gaussianrenderer_tpu_torch.ops.cuda import tile_train as tt
 
     scene = trained_500k_setup(device=mesh.device)[0]
@@ -4000,7 +4181,7 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
     lo, hi = mesh.rank * ns, min((mesh.rank + 1) * ns, n)
     losses, step_ms = [], []
     tt.train_forward.launches = tt.train_backward.launches = 0
-    gt.composite_tiles_packed.launches = 0
+    gt.composite_tiles_packed.launches = shc.sh_color.launches = 0
     for s in range(MC_TRAIN_STEPS):
         i = s % TRAIN_POSES
         dist.barrier(group=mesh.group)
@@ -4011,7 +4192,8 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
         step_ms.append(1e3 * (time.perf_counter() - t0))
     launches = {"tile_train_fwd": tt.train_forward.launches,
                 "tile_train_bwd": tt.train_backward.launches,
-                "tile_render2": gt.composite_tiles_packed.launches}
+                "tile_render2": gt.composite_tiles_packed.launches,
+                "sh_color": shc.sh_color.launches}
     instances = int(mc.last_frame["instances"])
     grad_rel = {}
     for name, g1, gm in zip(gt.SceneParams._fields, keep1.grads, keep.grads):
@@ -4024,7 +4206,7 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
                  for p, p0 in zip(params, params0) if p is not None)
 
     views = list(zip(cams, targets))
-    tt.train_forward.launches = tt.train_backward.launches = 0
+    tt.train_forward.launches = tt.train_backward.launches = shc.sh_color.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fitted, hist = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
@@ -4033,7 +4215,8 @@ def mc_train_rank(mesh, bounds, ckpt_dir):
     torch.cuda.synchronize()
     fit_ms = 1e3 * (time.perf_counter() - t0) / MC_FIT_STEPS
     fit_launches = {"tile_train_fwd": tt.train_forward.launches,
-                    "tile_train_bwd": tt.train_backward.launches}
+                    "tile_train_bwd": tt.train_backward.launches,
+                    "sh_color": shc.sh_color.launches}
     first = os.path.join(ckpt_dir, f"step_{MC_FIT_CHECKPOINT:06d}")
     refitted, resumed = gt.fit_scene(views, cfg, params0, steps=MC_FIT_STEPS, mesh=mesh,
                                      strip_bounds=bounds, resume_from=first, log_every=5)
@@ -4083,7 +4266,8 @@ def phase_multichip_train(torch, gt, scene, card):
         check(all(v <= MC_GRAD_REL for v in r["grad_max_rel"].values()),
               f"{name}: gradients {r['grad_max_rel']} from the single device's")
         check(r["launches"]["tile_train_fwd"] == MC_TRAIN_STEPS
-              and r["launches"]["tile_train_bwd"] == MC_TRAIN_STEPS,
+              and r["launches"]["tile_train_bwd"] == MC_TRAIN_STEPS
+              and r["launches"]["sh_color"] == 2 * MC_TRAIN_STEPS,
               f"{name}: train kernel calls {r['launches']} in {MC_TRAIN_STEPS} steps")
         check(r["finite_params_stay_finite"], f"{name}: a finite parameter became non-finite")
         fit = r["fit_losses"]
@@ -4112,7 +4296,7 @@ def phase_multichip_train(torch, gt, scene, card):
     check(at == MC_FIT_STEPS and digest == ranks[0]["fitted_sha256"],
           "multichip-train: the mesh checkpoint does not hold the fitted params")
     launches = {k: sum(r["launches"][k] + r["fit_launches"].get(k, 0) for r in ranks)
-                for k in ("tile_train_fwd", "tile_train_bwd")}
+                for k in ("tile_train_fwd", "tile_train_bwd", "sh_color")}
     return {"ranks": ranks, "bounds": bounds, "seconds": seconds, "launches": launches}
 
 
@@ -4422,13 +4606,16 @@ def main() -> int:
 
     with Phase("train-kernel-vs-plain", torch):
         tcfg = train_500k_config(gt)
-        truth = gt.SceneParams.from_scene(scene500)
+        start = perturbed(torch, gt, gt.SceneParams.from_scene(scene500))
+        cam0 = train_poses(gt, tcfg)[0]
         with torch.no_grad():
-            sf, asg = train_inputs(gt, perturbed(torch, gt, truth),
-                                   train_poses(gt, tcfg)[0], tcfg)
+            sf, asg = train_inputs(gt, start, cam0, tcfg)
         train_times = phase_train_kernel_vs_plain(torch, gt,
                                                   (sf, asg, tcfg, scene500.num_gaussians))
-        del sf, asg, truth
+        del sf, asg
+        sh500 = phase_sh_color(torch, "trained_500k, first training step", start.positions,
+                               start.sh, cam0.position, tcfg.sh_degree)
+        del start
 
     with Phase("train-500k", torch):
         train_res = phase_train(torch, gt, scene500, card)
@@ -4451,6 +4638,20 @@ def main() -> int:
 
     with Phase("formats-2m", torch):
         formats_res = phase_formats_2m(torch, gt, card)
+        torch.cuda.empty_cache()
+
+    with Phase("sh-color-2m", torch):
+        scene2m = gt.load_scene(SCENE_2M, max_sh_degree=None, device=DEVICE)
+        # The file holds SH 1; bands 2-3 drawn from a seed, so that every
+        # coefficient the benchmark's SH 3 cell trains takes part.
+        gen = torch.Generator(device=DEVICE).manual_seed(23)
+        w = scene2m.sh.shape[1]
+        bands = 0.05 * torch.randn((scene2m.num_gaussians, 48 - w), generator=gen,
+                                   device=DEVICE)
+        sh2m = phase_sh_color(torch, "trained_2m, bands 2-3 seeded", scene2m.positions,
+                              torch.cat([scene2m.sh, bands], dim=1),
+                              torch.tensor(VIEWER_POSE, device=DEVICE), 3)
+        del scene2m, bands
         torch.cuda.empty_cache()
 
     with Phase("colmap-fit", torch):
@@ -4591,6 +4792,44 @@ def main() -> int:
         "library_call": train_times["segment_sum"]["library_call"],
         "shape": (f"{train_times['segment_sum']['rows']} rows of 16 f32 into "
                   f"{train_times['segment_sum']['segments']} splats (train-500k first step)"),
+    }, {
+        "name": "sh_color",
+        "route": "cuda",
+        "source": "gaussianrenderer_tpu_torch/csrc/sh_color.cu",
+        "replaces": "gaussianrenderer_tpu/ops/projection.py:179",
+        "replaces_note": ("no TPU kernel: the JAX package's SH colour, eval_sh_columns, "
+                          "is plain jnp that XLA fuses"),
+        "launches": (train_res["sh_color_launches"]
+                     + fit_res["train_kernel_calls_fit"]["sh_color"]
+                     + mc3m["sh_color_launches"] + mctrain["launches"]["sh_color"]
+                     + viewer_res["kernel_launches"]["sh_color"]),
+        "launches_by_phase": {
+            "train-500k": train_res["sh_color_launches"],
+            "fit-500k": fit_res["train_kernel_calls_fit"]["sh_color"],
+            "fit-500k evaluate": fit_res["train_kernel_calls_evaluate"]["sh_color"],
+            "multichip-3m (all ranks)": mc3m["sh_color_launches"],
+            "multichip-train-500k (all ranks)": mctrain["launches"]["sh_color"],
+            "viewer-2m (in this process)": viewer_res["kernel_launches"]["sh_color"]},
+        "launches_counted": "forward and backward kernels, one each a call",
+        "max_abs_err": 0.0,
+        "dpos_max_over_row_scale_vs_twin": max(
+            sh2m["dpos_max_over_row_scale_vs_twin"], sh500["dpos_max_over_row_scale_vs_twin"]),
+        "ms": sh2m["fwd_ms"] + sh2m["bwd_ms"],
+        "fwd_ms": sh2m["fwd_ms"],
+        "bwd_ms": sh2m["bwd_ms"],
+        "pair_autograd_ms": sh2m["pair_autograd_ms"],
+        "device_ms": sh2m["device_ms"],
+        "plain_ms": sh2m["plain_ms"],
+        "plain_fwd_ms": sh2m["plain_fwd_ms"],
+        "bound_ms": sh2m["fwd_bound_ms"] + sh2m["bwd_bound_ms"],
+        "fwd_bound_ms": sh2m["fwd_bound_ms"],
+        "bwd_bound_ms": sh2m["bwd_bound_ms"],
+        "bound_by": sh2m["bound_by"],
+        "library_ms": None,
+        "shape": (f"trained_2m: {sh2m['n']} splats, {sh2m['coefficients']} coefficients, "
+                  f"SH {sh2m['degree']}, forward then backward"),
+        "trained_500k": {k: sh500[k] for k in ("n", "degree", "fwd_ms", "bwd_ms", "plain_ms",
+                                                "fwd_bound_ms", "bwd_bound_ms")},
     }, {
         "name": "prng",
         "route": "cuda",

@@ -41,7 +41,7 @@ NATIVE_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_native
 
 #: Kernel sources, by name (``csrc/<name>.cu``).
 SOURCES = ("tile_render2", "lookup", "tile_train", "matmul", "block_sort", "segment_sum",
-           "prng")
+           "prng", "sh_color")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -93,6 +93,18 @@ _SIGNATURES = {
         # (key word k1, n, mode, out, stream)
         "gr_prng": (
             _c_int, [ctypes.c_uint, ctypes.c_longlong, _c_int, _c_void_p, _c_void_p],
+        ),
+        "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
+    },
+    "sh_color": {
+        # (pos, sh, cam, n, stored degree, degree, out, stream)
+        "gr_sh_color_fwd": (
+            _c_int, [_c_void_p] * 3 + [ctypes.c_longlong, _c_int, _c_int] + [_c_void_p] * 2,
+        ),
+        # (pos, sh, cam, grad, n, stored degree, degree, dsh or NULL, dpos or NULL,
+        #  stream)
+        "gr_sh_color_bwd": (
+            _c_int, [_c_void_p] * 4 + [ctypes.c_longlong, _c_int, _c_int] + [_c_void_p] * 3,
         ),
         "gr_cuda_error_string": (ctypes.c_char_p, [_c_int]),
     },

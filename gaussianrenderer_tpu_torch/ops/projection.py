@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gaussianrenderer_tpu_torch.ops.sh import eval_sh_columns
+from gaussianrenderer_tpu_torch.ops.cuda.sh_color import sh_color
+from gaussianrenderer_tpu_torch.ops.sh import sqrt_f32
 from gaussianrenderer_tpu_torch.scene.camera import CameraParams
 from gaussianrenderer_tpu_torch.scene.gaussians import GaussianScene
 
@@ -56,14 +57,6 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
     the result to small ranges, so saturating at ±2^30 is equivalent."""
     x = torch.nan_to_num(x, nan=0.0).clamp(-(2.0**30), 2.0**30)
     return x.to(torch.int32)
-
-
-def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root. torch's vectorized CPU sqrt
-    can land an ulp off; a float64 root rounded to float32 is exact
-    (53 ≥ 2·24 + 2 bits makes the double rounding innocuous), which is
-    what XLA and CUDA's sqrtf return."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 class _KeepRows(torch.autograd.Function):
@@ -166,20 +159,14 @@ def preprocess_gaussians(
     """
     f32 = torch.float32
     rows = _ValidRows()
-    pos_t = rows(scene.positions).to(f32).T  # (3, N)
+    pos = rows(scene.positions).to(f32)
+    pos_t = pos.T  # (3, N)
     quat_t = rows(scene.quats).to(f32).T  # (4, N)
     scale_t = rows(scene.scales).to(f32).T  # (3, N)
-    sh_t = rows(scene.sh).to(f32).T  # (3(deg+1)², N)
     px_, py_, pz_ = pos_t[0], pos_t[1], pos_t[2]
 
     # ------------------------------------------------ SH view-dependent color
-    cpos = cam.position.to(f32)
-    dx = px_ - cpos[0]
-    dy = py_ - cpos[1]
-    dz = pz_ - cpos[2]
-    norm = sqrt_f32(dx * dx + dy * dy + dz * dz)
-    inv_n = torch.where(norm > 1e-8, 1.0 / norm, 0.0)
-    color = eval_sh_columns(sh_t, dx * inv_n, dy * inv_n, dz * inv_n, sh_degree)
+    color = sh_color(pos, rows(scene.sh), cam.position, sh_degree)
 
     # --------------------------------------------- view + projection transform
     view = cam.view.to(f32)

@@ -4,6 +4,8 @@ Counterpart of ``gaussianrenderer_tpu.ops.sh``: the real SH basis up to
 degree 3, view direction = normalize(splat_pos − camera_pos), result
 offset by +0.5 and clamped to [0, 1]. The operation order matches the
 JAX version term for term, so float32 results agree to rounding.
+:func:`view_color` is the plain chain that ``ops/cuda/sh_color.py``
+runs on the CPU and holds its kernel to on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +30,32 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. torch's vectorized CPU sqrt
+    can land an ulp off; a float64 root rounded to float32 is exact
+    (53 ≥ 2·24 + 2 bits makes the double rounding innocuous), which is
+    what XLA and CUDA's sqrtf return."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def view_color(positions: torch.Tensor, sh: torch.Tensor, cam_position: torch.Tensor,
+               degree: int) -> torch.Tensor:
+    """(N, 3) clamped colours of splats at ``positions`` (N, 3) with
+    coefficients ``sh`` (N, 3·(deg+1)²) seen from ``cam_position`` (3,),
+    in float32: the direction ``normalize(pos − cam)`` (0 where the
+    distance is at most 1e-8), then :func:`eval_sh_columns` to
+    ``degree``."""
+    f32 = torch.float32
+    pos_t = positions.to(f32).T
+    cpos = cam_position.to(f32)
+    dx = pos_t[0] - cpos[0]
+    dy = pos_t[1] - cpos[1]
+    dz = pos_t[2] - cpos[2]
+    norm = sqrt_f32(dx * dx + dy * dy + dz * dz)
+    inv_n = torch.where(norm > 1e-8, 1.0 / norm, 0.0)
+    return eval_sh_columns(sh.to(f32).T, dx * inv_n, dy * inv_n, dz * inv_n, degree)
 
 
 def eval_sh_columns(
